@@ -1,5 +1,5 @@
-# Common targets. TPU is the default backend; tests force a virtual
-# 8-device CPU mesh via tests/conftest.py.
+# Common targets. Programs use JAX's default backend (the GPU on a
+# card); tests force a virtual 8-device CPU mesh via tests/conftest.py.
 
 PY ?= python
 
@@ -8,7 +8,7 @@ PY ?= python
 test:
 	$(PY) -m pytest tests/ -q
 
-# Fast core tier (~2 min): DSP parity, Pallas kernels, data, models.
+# Fast core tier (~2 min): DSP parity, HPSS, data, models.
 test-quick:
 	$(PY) -m pytest tests/ -q -m quick
 
@@ -18,12 +18,12 @@ bench:
 # Toy-corpus end-to-end demo: folds + 3-fold MTL training + SMR sweep.
 demo:
 	$(PY) -c "from sm_hpss_mtl_tpu.data import make_toy_musan; \
-	          make_toy_musan('/tmp/smhpss_demo/toy', n_per_class=24, duration_s=4.0, seed=7)"
-	$(PY) -m sm_hpss_mtl_tpu.cli.mtl --data /tmp/smhpss_demo/toy \
-	    --features /tmp/smhpss_demo/feat --output /tmp/smhpss_demo/results \
+	          make_toy_musan('bench_out/demo/toy', n_per_class=24, duration_s=4.0, seed=7)"
+	$(PY) -m sm_hpss_mtl_tpu.cli.mtl --data bench_out/demo/toy \
+	    --features bench_out/demo/feat --output bench_out/demo/results \
 	    --epochs 15 --batch-size 8 --patch-size 32 --patch-shift 16 \
 	    --tr-steps 20 --v-steps 4 --lr-schedule-steps 100000 --smr-sweep
-	@echo "results: /tmp/smhpss_demo/results"
+	@echo "results: bench_out/demo/results"
 
 graft-check:
 	$(PY) __graft_entry__.py
@@ -32,4 +32,4 @@ graft-check:
 	            import __graft_entry__ as g; g.dryrun_multichip(8); print('dryrun(8) ok')"
 
 clean-demo:
-	rm -rf /tmp/smhpss_demo
+	rm -rf bench_out/demo

@@ -1,4 +1,4 @@
-"""Shared experiment runner: the TPU-native equivalent of the reference
+"""Shared experiment runner: the JAX equivalent of the reference
 drivers' ``__main__`` skeleton (``/root/reference/Proposed_Work_Results.py:
 838-975``): per CV fold — 70/30 train/val file split, class-balanced
 streams, model+optimizer build, fit with early stopping + best
@@ -100,12 +100,11 @@ def _device_pipeline(config, spec, feat_cfg, tr_files, va_files, data_seed,
 def resolve_clip_patches(config, tr_files: dict) -> int:
     """Resolve ``config.clip_patches`` (0 = adaptive) from corpus size.
 
-    The measured small-corpus failure mode (REAL_AUDIO.json
-    ``tpu_device_pipeline``): with few clips per class, packing several
-    patches per sampled clip starves each step of clip diversity and
-    training collapses (0.719 mean with two folds early-stopping vs
-    0.797 at one patch per clip).  Large corpora see no quality cost at
-    4 patches/clip and do ~4x less host crop slicing.  The switch point
+    The small-corpus failure mode seen on real audio: with few clips
+    per class, packing several patches per sampled clip starves each
+    step of clip diversity and training collapses (two folds
+    early-stopping).  Large corpora do ~4x less host crop slicing at
+    4 patches/clip.  The switch point
     — smallest training class under ``8 * batch_size`` clips — puts the
     measured degraded regime (~31 train clips/class) well inside the
     diverse setting and MUSAN-scale classes (~200-300 train files) in
@@ -245,11 +244,10 @@ def run_fold(config: ExperimentConfig, cv_file_list: dict, fold: int,
     sample_model_input = None
     pipeline = config.pipeline
     if pipeline == "auto":
-        # On TPU the fused audio->features->train pipeline is the
-        # measured default (~9-17x step throughput at matched quality —
-        # AB_PIPELINE.json / PIPELINE_bench.json); elsewhere the host
-        # pipeline keeps reference-exact sweep semantics.
-        pipeline = "device" if jax.default_backend() == "tpu" else "host"
+        # The host pipeline, on every platform: it keeps reference-exact
+        # sweep semantics, and on an H100 at reference geometry the
+        # device pipeline did not beat it end to end (PERF.md).
+        pipeline = "host"
     if pipeline == "device":
         (raw_train, raw_val, audio_train_step, audio_eval_step,
          sample_model_input) = _device_pipeline(

@@ -16,6 +16,7 @@ import os
 from ..data import Featurizer, load_cv_folds
 from ..data.folds import create_cv_folds
 from ..train.config import MODEL_PRESETS, ExperimentConfig
+from ..utils.compile_cache import enable_compile_cache
 from .experiment import class_names_for
 
 
@@ -27,6 +28,7 @@ def main(argv=None):
     p.add_argument("--n-classes", type=int, default=3)
     p.add_argument("--batch-size", type=int, default=16)
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     config = ExperimentConfig(model=args.model, data_root=args.data,
                               n_classes=args.n_classes)

@@ -1,6 +1,6 @@
 """Late-fusion driver: alpha-blend of two already-trained MTL models.
 
-TPU-native equivalent of ``/root/reference/Late_Fusion_Results.py``:
+JAX equivalent of ``/root/reference/Late_Fusion_Results.py``:
 loads a harmonic-feature model checkpoint and a percussive-feature model
 checkpoint (trained with the mtl driver using LogMelHarmSpec /
 LogMelPercSpec), blends their 3C posteriors at --alpha and reports
@@ -24,6 +24,7 @@ from ..eval.tester import FileWiseTester
 from ..models import get_model
 from ..train import (ExperimentConfig, TrainState, for_model, make_predict,
                      restore_checkpoint)
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.results import append_results
 
 
@@ -63,6 +64,7 @@ def main(argv=None):
     p.add_argument("--patch-size", type=int, default=68)
     p.add_argument("--output", default="./results")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     config = ExperimentConfig(model=args.model, data_root=args.data,
                               output_dir=args.output,

@@ -2,7 +2,7 @@
 
 The reference ships pre-rendered demo audio (``hpss_audio/*.mp3``) but no
 script that generates it (SURVEY.md §2.3); this is that missing entry
-point (BASELINE.json config 1): STFT -> median-filter soft masks ->
+point: STFT -> median-filter soft masks ->
 masked complex spectrogram -> iSTFT, all on device.
 
     python -m sm_hpss_mtl_tpu.cli.hpss_resynth in.wav --out-dir out/
@@ -21,6 +21,7 @@ from ..data.audio import read_audio, write_wav
 from ..ops import stft as st
 from ..ops.hpss import hpss_masks
 from ..ops.mixing import mix_signals_np, normalize_signal_np
+from ..utils.compile_cache import enable_compile_cache
 
 
 def resynthesize(x: np.ndarray, *, n_fft: int = 400, win_length: int = 400,
@@ -47,6 +48,7 @@ def main(argv=None):
     p.add_argument("--l-harm", type=int, default=21)
     p.add_argument("--l-perc", type=int, default=11)
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     x, sr = read_audio(args.input)
     stem = os.path.splitext(os.path.basename(args.input))[0]

@@ -1,6 +1,6 @@
 """Create cross-validation folds for a MUSAN-layout corpus.
 
-TPU-native equivalent of ``/root/reference/create_cross_validation_folds.py``
+JAX equivalent of ``/root/reference/create_cross_validation_folds.py``
 (and the 5-class variant via --with-noise).
 
     python -m sm_hpss_mtl_tpu.cli.make_folds --data /path/to/musan [--with-noise]
@@ -12,6 +12,7 @@ import argparse
 import os
 
 from ..data import create_cv_folds, save_cv_folds
+from ..utils.compile_cache import enable_compile_cache
 
 
 def main(argv=None):
@@ -23,6 +24,7 @@ def main(argv=None):
     p.add_argument("--with-noise", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
+    enable_compile_cache()
     cv = create_cv_folds(args.data, cv=args.cv, with_noise=args.with_noise,
                          seed=args.seed)
     out = args.output or os.path.join(args.data, "cv_info")

@@ -1,6 +1,6 @@
 """Proposed-work driver: MTL / Cascaded-MTL models with HPSS features.
 
-TPU-native equivalent of ``/root/reference/Proposed_Work_Results.py``.
+JAX equivalent of ``/root/reference/Proposed_Work_Results.py``.
 
     python -m sm_hpss_mtl_tpu.cli.mtl --data /path/to/musan \\
         --model Lemaire_et_al_MTL --epochs 50 --folds 0 1 2 [--smr-sweep]
@@ -11,6 +11,7 @@ from __future__ import annotations
 import argparse
 
 from ..train import ExperimentConfig
+from ..utils.compile_cache import enable_compile_cache
 from .experiment import run_experiment
 
 
@@ -45,11 +46,9 @@ def build_parser(default_model: str = "Lemaire_et_al_MTL"):
     p.add_argument("--pipeline", choices=["auto", "host", "device"],
                    default="auto",
                    help="'device' runs featurization inside the train step "
-                        "(host only streams raw-audio crops) — the TPU-"
-                        "native fast path; 'host' is reference-parity "
-                        "patch batching; 'auto' (default) picks device on "
-                        "TPU, host elsewhere (quality parity: "
-                        "AB_PIPELINE.json)")
+                        "(host only streams raw-audio crops); 'host' is "
+                        "reference-parity patch batching; 'auto' (default) "
+                        "picks host")
     p.add_argument("--clip-patches", type=int, default=0,
                    help="device pipeline: patches per sampled clip crop; "
                         "0 (default) adapts to corpus size — 1 when the "
@@ -64,9 +63,6 @@ def build_parser(default_model: str = "Lemaire_et_al_MTL"):
     p.add_argument("--min-crop-s", type=float, default=0.0,
                    help="device pipeline: minimum crop seconds for "
                         "crop-local standardization context")
-    p.add_argument("--dft-precision", choices=["bf16x3", "highest"],
-                   default="bf16x3",
-                   help="fused-frontend DFT precision (NOTES.md policy)")
     p.add_argument("--seed", type=int, default=0)
     return p
 
@@ -86,7 +82,7 @@ def config_from_args(args) -> ExperimentConfig:
         augment_noise=not args.no_augment, loss_weights=lw,
         compute_dtype="bfloat16" if args.bf16 else "float32",
         pipeline=args.pipeline, clip_patches=args.clip_patches,
-        min_crop_s=args.min_crop_s, dft_precision=args.dft_precision,
+        min_crop_s=args.min_crop_s,
         feat_name_override=args.feat_name,
         skewness_vector=args.skewness_vector,
         frame_level_scaling=args.frame_level_scaling, seed=args.seed)
@@ -94,6 +90,7 @@ def config_from_args(args) -> ExperimentConfig:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     results = run_experiment(config_from_args(args), folds=args.folds,
                              smr_sweep=args.smr_sweep)
     for fold, out in enumerate(results):

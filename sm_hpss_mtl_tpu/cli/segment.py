@@ -1,6 +1,6 @@
 """Streaming segmentation driver: long-audio speech/music detection.
 
-TPU-native equivalent of
+JAX equivalent of
 ``/root/reference/DAFx12_Speech_Music_Detection_B3_MTL_v2.py``: load a
 trained MUSAN MTL checkpoint, stream dense per-frame predictions over
 whole recordings (shift-1 windows in 10,000-frame slabs), smooth the
@@ -29,6 +29,7 @@ from ..eval.segment import (StreamingSegmenter,
 from ..models import get_model
 from ..train import TrainState, for_model, make_predict, restore_checkpoint
 from ..train.config import MODEL_PRESETS
+from ..utils.compile_cache import enable_compile_cache
 
 #: Broadcasts longer than this many frames featurize via the slabbed
 #: fixed-shape path (ops.featuregram.featuregram_slabbed) instead of a
@@ -38,12 +39,10 @@ SLAB_THRESHOLD_FRAMES = 16384
 
 def _featurize_broadcast(x, preset):
     """Featurize a whole broadcast.  With >1 device and a Mel-HPSS
-    featName, shard the time axis across chips via the fused-frontend
-    halo exchange (``parallel.featuregram_time_sharded``) — the
-    multi-chip leg of the DAFx streaming path; otherwise the plain
+    featName, shard the time axis across devices via the audio halo
+    exchange (``parallel.featuregram_time_sharded``) — the
+    multi-device leg of the DAFx streaming path; otherwise the plain
     jitted featuregram."""
-    import jax
-
     from ..data.featurize import _reflect_pad_to, bucket_length
     from ..ops.featuregram import _parse, featuregram
     from ..ops.stft import n_frames as stft_frames
@@ -68,8 +67,7 @@ def _featurize_broadcast(x, preset):
         return featuregram_slabbed(
             np.asarray(x, np.float32), feat_name=preset["feat_name"],
             n_fft=preset["n_fft"],
-            n_mels=preset["n_mels"] if preset["n_mels"] > 0 else 120,
-            use_pallas=jax.default_backend() == "tpu")
+            n_mels=preset["n_mels"] if preset["n_mels"] > 0 else 120)
     # Short files: bucket the audio length like Featurizer._compute —
     # every distinct length otherwise traces/compiles a fresh XLA
     # program, so batch segmenting many ragged files pays repeated
@@ -79,7 +77,6 @@ def _featurize_broadcast(x, preset):
         jnp.asarray(x), feat_name=preset["feat_name"],
         n_fft=preset["n_fft"],
         n_mels=preset["n_mels"] if preset["n_mels"] > 0 else 120,
-        use_pallas=jax.default_backend() == "tpu",
         valid_frames=jnp.asarray(true_t, jnp.int32)))
     return fv[:, :true_t]
 
@@ -102,6 +99,7 @@ def main(argv=None):
                    help="interval CSV (tmin,dur,label) to score against")
     p.add_argument("--out", default=None, help="save labels npz here")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     preset = MODEL_PRESETS[args.model]
     if args.spec:

@@ -1,6 +1,6 @@
 """Feature-space visualization: KMeans-compressed t-SNE embeddings.
 
-TPU-native equivalent of ``/root/reference/draw_tSNE_plots.py``: load
+JAX equivalent of ``/root/reference/draw_tSNE_plots.py``: load
 per-class feature patches (optionally reduced to row/column skewness
 "striation" vectors, the paper's evidence that harmonic striations
 separate speech from music), compress each class with KMeans, embed with
@@ -20,6 +20,7 @@ import numpy as np
 from ..data import FeatureConfig, Featurizer, load_cv_folds
 from ..data.folds import create_cv_folds
 from ..ops.patches import extract_patches_np, standardize_rows
+from ..utils.compile_cache import enable_compile_cache
 
 
 def collect_class_patches(featurizer, folder, files_by_class, *,
@@ -168,6 +169,7 @@ def main(argv=None):
                    help="sweep perplexity/exaggeration/learning-rate over "
                         "the reference ranges and keep the lowest-KL run")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     cv_path = os.path.join(args.data, "cv_info")
     if os.path.exists(os.path.join(cv_path, "cv_file_list.pkl")):

@@ -32,6 +32,7 @@ import os
 import numpy as np
 
 from ..train import ExperimentConfig
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.results import append_results
 from .experiment import run_experiment
 
@@ -84,7 +85,7 @@ def run_vmapped_trials(base: ExperimentConfig, trials: list[dict],
                        mesh=None) -> list[dict]:
     """Train all shape-invariant ``trials`` in ONE vmapped program
     (``train/multitrial.py``) sharing a single host batch stream — the
-    TPU-native replacement for the reference's sequential loss-weight
+    vectorized replacement for the reference's sequential loss-weight
     grid (``Hyperparameter_Selection.py:541-552``) and for seed-replicate
     variance runs.  Host pipeline, single mesh device.
     """
@@ -189,6 +190,7 @@ def main(argv=None):
     p.add_argument("--v-steps", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     base = ExperimentConfig(
         model=args.model, data_root=args.data, feature_dir=args.features,

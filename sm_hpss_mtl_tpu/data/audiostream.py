@@ -1,9 +1,9 @@
 """Raw-audio streaming for the fully on-device training pipeline.
 
 The reference's hot loop featurizes on the host inside its generator
-(``/root/reference/Proposed_Work_Results.py:49-270``); round 1 measured
-that path at ~7.6 ms/48-patch batch against a 0.2-0.3 ms device step —
-the chip idles >95%.  This module is the TPU-native alternative: the
+(``/root/reference/Proposed_Work_Results.py:49-270``), so host feature
+work sits between every device step.  This module is the on-device
+alternative: the
 host only serves class-balanced **raw audio crops** (a memmap slice per
 clip — microseconds), and STFT/HPSS/mel/patching/training all run in
 one XLA program (``train.endtoend.make_audio_train_step``).

@@ -7,7 +7,7 @@ naming (``spstem_mustem_<dB>dB`` for mixtures), so a cache written by one
 run is reusable by any driver.
 
 The compute itself runs on the accelerator through
-``ops.featuregram.featuregram`` (STFT -> HPSS (Pallas on TPU) -> mel ->
+``ops.featuregram.featuregram`` (STFT -> HPSS -> mel ->
 log in one program).  Audio is featurized at its exact length — compile
 once per distinct length; the persistent JAX compile cache plus the npy
 cache make this a first-epoch-only cost, matching the reference's
@@ -43,10 +43,6 @@ class FeatureConfig:
     l_perc: int = 11
     Tw: int = 25
     Ts: int = 10
-    #: fused-frontend windowed-DFT precision: 'bf16x3' (3-matmul manual
-    #: decomposition, ~f32 accuracy, the measured default) or 'highest'
-    #: (full f32, ~2x DFT cost) — see NOTES.md precision policy.
-    dft_precision: str = "bf16x3"
 
     @property
     def dim(self) -> int:
@@ -65,7 +61,7 @@ def bucket_length(n: int, min_n: int = 16000, ratio: float = 1.1) -> int:
     """Geometric length buckets: the smallest grid point >= n.
 
     Every distinct audio length compiles a fresh XLA program; on a
-    corpus of ragged files that is thousands of (slow, remote) compiles.
+    corpus of ragged files that is thousands of compiles.
     Bucketing caps the number of compiled shapes at
     ~log_ratio(max/min) ≈ 50 for 1 s..3 h at ratio 1.1.
     """
@@ -101,13 +97,9 @@ class Featurizer:
     """
 
     def __init__(self, config: FeatureConfig, cache_dir: str | None = None,
-                 use_pallas: bool | None = None, bucket: bool = True,
-                 mem_cache_mb: int = 512):
+                 bucket: bool = True, mem_cache_mb: int = 512):
         self.config = config
         self.cache_dir = cache_dir
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
-        self.use_pallas = use_pallas
         self.bucket = bucket
         # Bounded in-memory LRU over the npy cache: avoids re-parsing +
         # re-reading featuregrams the balanced batcher revisits often.
@@ -146,8 +138,7 @@ class Featurizer:
             jnp.asarray(audio), feat_name=c.feat_name, sr=c.sr,
             n_fft=c.n_fft, win_length=c.win_length, hop_length=c.hop_length,
             n_mels=c.n_mels, l_harm=c.l_harm, l_perc=c.l_perc,
-            use_pallas=self.use_pallas, valid_frames=valid,
-            dft_precision=c.dft_precision)
+            valid_frames=valid)
         out = np.asarray(out, dtype=np.float32)
         if self.bucket:
             out = out[:, :true_T]
@@ -248,9 +239,7 @@ class Featurizer:
                     n_fft=c.n_fft, win_length=c.win_length,
                     hop_length=c.hop_length, n_mels=c.n_mels,
                     l_harm=c.l_harm, l_perc=c.l_perc,
-                    use_pallas=self.use_pallas,
-                    valid_frames=valid[:, None, None],
-                    dft_precision=c.dft_precision)
+                    valid_frames=valid[:, None, None])
                 out = np.asarray(out, dtype=np.float32)
                 for (key, cache_path, _, true_T, _), fv in zip(chunk, out):
                     fv = fv[:, :true_T]

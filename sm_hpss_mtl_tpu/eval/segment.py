@@ -1,6 +1,6 @@
 """Long-audio streaming segmentation (cross-corpus broadcast use case).
 
-TPU-native equivalent of the DAFx12 driver
+JAX equivalent of the DAFx12 driver
 (``/root/reference/DAFx12_Speech_Music_Detection_B3_MTL_v2.py``):
 
 - :func:`interval_annotations_to_markers` — time-interval CSV rows
@@ -113,7 +113,7 @@ class StreamingSegmenter:
       fixed-shape call per slab — the direct analog of the reference's
       10,000-frame loop (``DAFx12_...py:634-676``).
     - ``use_scan=True``: the whole slab loop is a single
-      ``lax.scan`` program — the TPU-native unbounded-broadcast form
+      ``lax.scan`` program — the on-device unbounded-broadcast form
       SURVEY.md §5 names: one dispatch for the entire recording, window
       extraction via static strided slices inside the scan body.
       Requires ``predict_fn`` to be jax-traceable.
@@ -128,11 +128,10 @@ class StreamingSegmenter:
     #: reference's DAFx streaming path feeds UNstandardized slabs
     #: (its local ``get_feature_patches``, ``DAFx12_...py:260-294``, has
     #: no StandardScaler), a train/test mismatch its protocol papers
-    #: over with transfer learning.  Measured on a real mixed broadcast
-    #: (REAL_AUDIO.json): whole-broadcast standardization collapses the
-    #: S head (0.707 positive on a speech-only slab -> 0.021 in a 200-s
-    #: mixed file), so the default is ``True`` == 'chunk': slab-local
-    #: stats, the closest streaming analog of the training scope.
+    #: over with transfer learning.  On a real mixed broadcast,
+    #: whole-broadcast standardization collapsed the S head on speech,
+    #: so the default is ``True`` == 'chunk': slab-local stats, the
+    #: closest streaming analog of the training scope.
     #: 'featuregram' = whole-recording stats; False/'none' = reference
     #: DAFx parity (no standardization).
     standardize: bool | str = True
@@ -175,7 +174,7 @@ class StreamingSegmenter:
 
         ``fv`` may be a host array or a ``jax.Array`` (e.g. from
         ``featuregram_slabbed(device_out=True)``); the scan driver keeps
-        a device featuregram resident — the TPU-native serving chain
+        a device featuregram resident — the device serving chain
         then ships only raw audio up and probability tracks down.  The
         plain-loop driver extracts windows host-side, so it fetches a
         device featuregram once."""
@@ -245,7 +244,7 @@ class StreamingSegmenter:
                 if self._scope() == "chunk":
                     seg = self._standardize_parts(seg)
                 # (chunk, D, W) windows from W static strided slices — no
-                # gathers (TPU fancy-index gathers scalarize).
+                # gathers.
                 wins = jnp.stack(
                     [lax.slice_in_dim(seg, k, k + chunk, axis=1)
                      for k in range(W)], axis=-1)

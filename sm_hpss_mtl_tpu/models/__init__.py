@@ -1,4 +1,4 @@
-"""Flax model zoo: TCN (Lemaire), CNNs (Doukhan, Papakostas, Jang),
+"""Model zoo: TCN (Lemaire), CNNs (Doukhan, Papakostas, Jang),
 shared-trunk MTL heads, cascaded MTL, intermediate fusion."""
 
 from .zoo import MODEL_NAMES, ModelSpec, get_model  # noqa: F401

@@ -17,10 +17,10 @@ implemented as an avg-pool over the channel axis so XLA fuses it.
 
 from __future__ import annotations
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from . import nn
 from .pool import max_pool
 from .heads import BN_KW, KDense, MTLHeads
 
@@ -37,11 +37,9 @@ def local_response_normalization(x, depth_radius: int = 5, bias: float = 1.0,
                                  alpha: float = 1e-4, beta: float = 0.75):
     """TF-semantics LRN over the channel (last) axis.
 
-    The windowed channel sum is a banded (C, C) 0/1 matmul so it runs on
-    the MXU.  Channels are the TPU lane dimension; the once-obvious
-    cumsum formulation serializes along lanes (measured ~2 ms for a
-    (48, 49, 7, 384) activation — slower than the surrounding convs),
-    while the band matmul is a constant-folded weight away from peak.
+    The windowed channel sum is a banded (C, C) 0/1 matmul, so it runs
+    as one matrix product over the channel axis instead of a cumsum
+    along it.
     """
     C = x.shape[-1]
     i = jnp.arange(C)
@@ -82,7 +80,7 @@ class _DenseBNReluDrop(nn.Module):
         x = nn.Dense(self.features, dtype=self.dtype,
                      kernel_init=(_PAPA_K if self.papakostas else _GLOROT),
                      bias_init=(_PAPA_B if self.papakostas else
-                                nn.initializers.zeros_init()),
+                                nn.initializers.zeros),
                      name="dense")(x)
         x = nn.BatchNorm(use_running_average=not train, name="bn", **BN_KW)(x)
         x = nn.relu(x)

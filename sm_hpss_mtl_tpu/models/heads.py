@@ -29,13 +29,14 @@ from __future__ import annotations
 
 import functools
 
-import flax.linen as nn
 import jax.numpy as jnp
+
+from . import nn
 
 # Keras BatchNormalization defaults (momentum 0.99, eps 1e-3).
 BN_KW = dict(momentum=0.99, epsilon=1e-3)
-#: Keras Dense/Conv default kernel initializer (flax defaults to
-#: lecun_normal; the reference's layers are glorot_uniform).
+#: Keras Dense/Conv default kernel initializer (``models.nn`` defaults
+#: to lecun_normal; the reference's layers are glorot_uniform).
 KDense = functools.partial(nn.Dense,
                            kernel_init=nn.initializers.glorot_uniform())
 

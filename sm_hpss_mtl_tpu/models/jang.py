@@ -10,11 +10,11 @@ band height (so each band emits one output row), then concatenates the
 rows (``proposed_architectures.py:623-646``).  That is 120 tiny convs —
 hostile to any accelerator.
 
-TPU-native reformulation: the whole layer is a single *banded* linear
+Reformulation: the whole layer is a single *banded* linear
 operator.  With ``x`` the ``(B, F, T)`` spectrogram and a weight tensor
 ``W (n_mels, F, t_dim, 3)`` masked to each mel filter's support, the
 output is ``out[b,m,t,c] = Σ_f Σ_dt W[m,f,dt,c] · x[b,f,t+dt-2]`` — one
-einsum contracting ``(F, t_dim)`` onto the MXU, mathematically identical
+contraction over ``(F, t_dim)``, mathematically identical
 to the reference's per-band convs (stride = band height + 'same' padding
 makes each band's conv exactly one weighted sum per time step; the
 temporal 'same' zero padding is reproduced here).  Weights are
@@ -29,11 +29,11 @@ Inputs NHWC: single-task ``(B, 257, T, 1)``; MTL ``(B, 514, T, 1)``
 
 from __future__ import annotations
 
-import flax.linen as nn
 import jax.numpy as jnp
 import numpy as np
 
 from ..ops import reference as ref
+from . import nn
 from .pool import max_pool
 from .heads import BN_KW, KDense, MTLHeads
 
@@ -75,10 +75,8 @@ class MelScaleLayer(nn.Module):
         # The banded operator IS a 1-D conv over time with all F rows as
         # input channels: out[b,t,m*C+c] = sum_{k,f} x[b,t+k-half,f] *
         # W[m,f,k,c].  Lowered as lax.conv so fwd and both grads hit
-        # XLA's conv kernels directly (equal in speed to the
-        # shifted-stack einsum it replaced on v5e — ablation showed the
-        # Jang step cost lives in the conv blocks' pool/BN/dropout, not
-        # here — but avoids materializing the (B,F,T,t_dim) stack).
+        # XLA's conv kernels directly, and no (B,F,T,t_dim) shifted
+        # stack is materialized.
         import jax
         mc = self.n_mels * self.out_channels
         kernel = jnp.transpose(W, (2, 1, 0, 3)).reshape(self.t_dim, F, mc)

@@ -13,9 +13,9 @@ layout the reference feeds after its transpose at
 
 from __future__ import annotations
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from . import nn
 from .heads import BN_KW, CascadedMTLHeads, KDense, MTLHeads
 from .tcn import TCN
 

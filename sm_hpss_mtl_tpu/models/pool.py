@@ -1,13 +1,9 @@
-"""TPU-friendly max pooling.
+"""Max pooling without ``reduce_window``.
 
-``flax.linen.max_pool`` lowers to ``reduce_window``, whose gradient is
-a ``SelectAndScatter`` op.  These formulations keep the same math but
-lower the backward to elementwise select + pad ops.  Measured on v5e
-(interleaved A/B, Doukhan-MTL batch-48 train step): parity with the
-flax pool — XLA's SelectAndScatter is not the bottleneck at these
-shapes (the step is activation-bandwidth-bound) — kept because the
-lowering is structurally simpler, grads are plain elementwise ops, and
-it costs nothing:
+A ``lax.reduce_window`` max pool has a ``SelectAndScatter`` gradient.
+These formulations keep the same math but lower the backward to
+elementwise select + pad ops, so the gradient is plain elementwise work
+XLA fuses:
 
 - window == stride (the (2,2)/2 and (1,12)/(1,12) cases): reshape the
   axis into (out, w) groups and ``max`` over the group axis — the
@@ -16,8 +12,9 @@ it costs nothing:
   the w*w strided window slices — the gradient of each slice is a
   dilated pad, all regular XLA ops.
 
-Semantics match ``nn.max_pool`` (XLA SAME padding arithmetic, -inf
-identity) and are pinned against it in tests/test_models.py.
+Semantics match a ``lax.reduce_window`` max pool (XLA SAME padding
+arithmetic, -inf identity) and are pinned against it in
+tests/test_models.py.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Temporal Convolutional Network (Lemaire et al., ISMIR 2019 config).
 
-Flax re-implementation of the TCN the reference builds through the
+JAX re-implementation of the TCN the reference builds through the
 ``keras-tcn`` package (``from tcn import TCN`` at
 ``/root/reference/lib/baseline_architectures.py:257`` and
 ``lib/proposed_architectures.py:124``), with the semantics of that
@@ -19,9 +19,9 @@ kernel 3, Nd=8, 3 stacks, 1 layer, 32 filters, no skip connections,
 the dropout rate is an explicit, seeded parameter (documented deviation
 from the reference's irreproducible ``np.random.uniform`` draw).
 
-TPU notes: all convs are NTC-layout ``lax.conv_general_dilated`` calls
-that XLA maps to the MXU; the channel-norm / dropout / residual adds fuse
-into the surrounding elementwise passes.  Sequence length (68 or 249) and
+Device notes: all convs are NTC-layout ``lax.conv_general_dilated``
+calls; the channel-norm / dropout / residual adds fuse into the
+surrounding elementwise passes.  Sequence length (68 or 249) and
 channel count (32) are static, so one compiled program serves the whole
 training run.
 """
@@ -30,9 +30,10 @@ from __future__ import annotations
 
 from typing import Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+
+from . import nn
 
 
 def channel_normalization(x: jnp.ndarray) -> jnp.ndarray:

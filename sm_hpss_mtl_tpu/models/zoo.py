@@ -1,6 +1,6 @@
 """Model registry mirroring the reference's model names.
 
-``get_model(name, ...)`` returns a Flax module plus its expected input
+``get_model(name, ...)`` returns a module (``models.nn``) plus its expected input
 spec.  Names match the reference drivers' ``PARAMS['Model']`` values
 (``/root/reference/Proposed_Work_Results.py:749``,
 ``Baseline_Results.py:546``) with two additions: the intermediate-fusion

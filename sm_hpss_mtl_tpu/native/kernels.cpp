@@ -4,7 +4,7 @@
 // module /root/reference/lib/cython_impl/tools.pyx (extract_patches,
 // removeSilence, scale_data, get_data_statistics).  These run on the host
 // CPU inside the data loader where Python-loop overhead would throttle
-// feature streaming; the on-device (XLA/Pallas) paths remain the north
+// feature streaming; the on-device (XLA) paths remain the north
 // star for bulk compute, and results are bit-compatible with the numpy
 // implementations they shadow (ops/patches.py, ops/silence.py,
 // ops/stats.py), which the tests enforce.

@@ -1,15 +1,13 @@
-"""Batched DSP ops (JAX/XLA/Pallas) + numpy golden reference.
+"""Batched DSP ops (JAX/XLA) + numpy golden reference.
 
 Submodules:
 
 - ``reference``   numpy golden implementations of the librosa algorithms
                   the reference repo calls (the parity oracle for tests).
-- ``stft``        batched STFT / iSTFT / RMS framing (XLA rFFT).
+- ``stft``        batched STFT / iSTFT / RMS framing (block-matmul DFT).
 - ``mel``         mel filterbank matmul + power_to_db.
-- ``hpss``        jnp HPSS (sliding medians + Wiener soft masks).
-- ``hpss_pallas`` fused single-pass Pallas TPU kernel for spectral HPSS.
-- ``frontend_pallas`` fully fused audio->feature Pallas kernel (windowed
-                  DFT + HPSS medians + masks + mel in one VMEM pass).
+- ``hpss``        jnp HPSS (selection-network sliding medians + Wiener
+                  soft masks).
 - ``featuregram`` end-to-end featName dispatch (audio -> feature matrix).
 - ``patches``     sliding-window patch extraction + per-file scaling.
 - ``silence``     RMS silence removal (host-side segment logic).
@@ -17,5 +15,5 @@ Submodules:
 - ``stats``       per-patch moment statistics (skew/kurtosis vectors).
 """
 
-from . import (featuregram, frontend_pallas, hpss, mel, mixing,  # noqa: F401
-               patches, reference, silence, stats, stft)
+from . import (featuregram, hpss, mel, mixing, patches,  # noqa: F401
+               reference, silence, stats, stft)

@@ -2,10 +2,9 @@
 
 Replaces the featName dispatch of the reference's
 ``lib/preprocessing.py:get_featuregram`` (:355-457) with one jitted,
-batched pipeline per feature name.  The whole chain — framing, rFFT, HPSS
+batched pipeline per feature name.  The whole chain — framing, DFT, HPSS
 medians + masks, mel matmul, log scaling — compiles to a single XLA
-program, so a batch of files is one HBM round trip instead of the
-reference's per-file librosa calls.
+program per batch instead of the reference's per-file librosa calls.
 
 Feature names match the reference exactly
 (``/root/reference/Proposed_Work_Results.py:750-757``):
@@ -70,78 +69,50 @@ def _parse(feat_name: str):
     return log, mel, harm, perc
 
 
+def stft_hpss(y: jax.Array, mel_basis=None, *, n_fft: int = 400,
+              win_length: int = 400, hop_length: int = 160,
+              l_harm: int = 21, l_perc: int = 11,
+              power: float = 2.0) -> tuple[jax.Array, jax.Array]:
+    """Audio ``(..., n_samples)`` -> HPSS components ``(H, P)``:
+    ``stft_mag`` -> ``hpss`` and, when the ``(n_mels, F)`` ``mel_basis``
+    is given, the mel projection of each, ``(..., n_mels, T)``."""
+    S = stft_mod.stft_mag(y, n_fft=n_fft, win_length=win_length,
+                          hop_length=hop_length)
+    H, P = hpss_mod.hpss(S, l_harm=l_harm, l_perc=l_perc, power=power)
+    if mel_basis is None:
+        return H, P
+    return mel_project(H, mel_basis), mel_project(P, mel_basis)
+
+
+def mel_project(X: jax.Array, mel_basis) -> jax.Array:
+    """``(n_mels, F) @ (..., F, T)`` at full float32 precision."""
+    return jnp.einsum("mf,...ft->...mt", jnp.asarray(mel_basis, jnp.float32),
+                      X, preferred_element_type=jnp.float32,
+                      precision=jax.lax.Precision.HIGHEST)
+
+
 @functools.partial(
     jax.jit,
     static_argnames=("feat_name", "sr", "n_fft", "win_length", "hop_length",
-                     "n_mels", "l_harm", "l_perc", "use_pallas",
-                     "dft_precision", "top_db"))
+                     "n_mels", "l_harm", "l_perc", "top_db"))
 def featuregram(y: jax.Array, *, feat_name: str, sr: int = 16000,
                 n_fft: int = 400, win_length: int = 400, hop_length: int = 160,
                 n_mels: int = 120, l_harm: int = 21, l_perc: int = 11,
-                use_pallas: bool = False, valid_frames=None,
-                dft_precision: str = "bf16x3",
+                valid_frames=None,
                 top_db: float | None = 80.0) -> jax.Array:
     """Compute the featuregram for audio ``(..., n_samples)`` ->
     ``(..., D, T)``.
 
-    ``use_pallas`` switches the HPSS median+mask stage to the fused Pallas
-    TPU kernel (``ops.hpss_pallas``); the default jnp path is used for CPU
-    tests and as the correctness oracle.  ``valid_frames`` (traced scalar)
-    limits the data-dependent power_to_db clamp to real frames when the
-    audio was length-padded (see ``data.featurize.Featurizer``).
-    ``dft_precision`` ('bf16x3' | 'highest') selects the fused frontend's
-    windowed-DFT matmul precision (see HPSS_GOLDEN.json / NOTES.md for
-    the measured policy evidence).  ``top_db`` is librosa's dB clamp
-    width; ``None`` skips the clamp (the log map is then purely
+    ``valid_frames`` (traced scalar) limits the data-dependent
+    power_to_db clamp to real frames when the audio was length-padded
+    (see ``data.featurize.Featurizer``).  ``top_db`` is librosa's dB
+    clamp width; ``None`` skips the clamp (the log map is then purely
     elementwise — used by ``featuregram_slabbed`` to defer the
     global-peak clamp until all slabs exist).
     """
     log, mel, harm, perc = _parse(feat_name)
 
-    if not (harm or perc):
-        if mel:
-            # MelSpec / LogMelSpec: mel-power spectrogram at the true sr.
-            S = stft_mod.stft_mag(y, n_fft=n_fft, win_length=win_length,
-                                  hop_length=hop_length) ** 2
-            fv = mel_mod.apply_mel(S, sr=sr, n_mels=n_mels)
-        else:
-            fv = stft_mod.stft_mag(y, n_fft=n_fft, win_length=win_length,
-                                   hop_length=hop_length)
-        if log:
-            fv = mel_mod.power_to_db(fv ** 2, valid_len=valid_frames,
-                                     top_db=top_db)
-        return fv.astype(jnp.float32)
-
-    # HPSS branches.
-    if use_pallas and mel:
-        # Fully fused frontend: windowed DFT + medians + masks + mel in
-        # one Pallas pass — the full-resolution spectrogram never
-        # touches HBM (ops.frontend_pallas).
-        from . import frontend_pallas
-        M = mel_mod.mel_filterbank(_MEL_SR_QUIRK, n_fft, n_mels)
-        H, P = frontend_pallas.stft_hpss_mel(
-            y, M, n_fft=n_fft, win_length=win_length,
-            hop_length=hop_length, l_harm=l_harm, l_perc=l_perc,
-            dft_precision=dft_precision)
-        already_mel = True
-    elif use_pallas:
-        # Full-resolution fused frontend (HarmSpec/PercSpec families —
-        # the Papakostas-MTL and Jang-MTL presets).
-        from . import frontend_pallas
-        H, P = frontend_pallas.stft_hpss(
-            y, n_fft=n_fft, win_length=win_length, hop_length=hop_length,
-            l_harm=l_harm, l_perc=l_perc, dft_precision=dft_precision)
-        already_mel = False
-    else:
-        S = stft_mod.stft_mag(y, n_fft=n_fft, win_length=win_length,
-                              hop_length=hop_length)
-        H, P = hpss_mod.hpss(S, l_harm=l_harm, l_perc=l_perc)
-        already_mel = False
-
-    def _post(component):
-        fv = component
-        if mel and not already_mel:
-            fv = mel_mod.apply_mel(fv, sr=_MEL_SR_QUIRK, n_mels=n_mels)
+    def _log(fv):
         if log:
             # power_to_db(fv**2): the reference squares the (already
             # magnitude-domain) feature before the dB map.
@@ -149,11 +120,18 @@ def featuregram(y: jax.Array, *, feat_name: str, sr: int = 16000,
                                      top_db=top_db)
         return fv.astype(jnp.float32)
 
-    parts = []
-    if harm:
-        parts.append(_post(H))
-    if perc:
-        parts.append(_post(P))
+    if not (harm or perc):
+        fv = stft_mod.stft_mag(y, n_fft=n_fft, win_length=win_length,
+                               hop_length=hop_length)
+        if mel:
+            # MelSpec / LogMelSpec: mel-power spectrogram at the true sr.
+            fv = mel_mod.apply_mel(fv ** 2, sr=sr, n_mels=n_mels)
+        return _log(fv)
+
+    M = mel_mod.mel_filterbank(_MEL_SR_QUIRK, n_fft, n_mels) if mel else None
+    H, P = stft_hpss(y, M, n_fft=n_fft, win_length=win_length,
+                     hop_length=hop_length, l_harm=l_harm, l_perc=l_perc)
+    parts = ([_log(H)] if harm else []) + ([_log(P)] if perc else [])
     return parts[0] if len(parts) == 1 else jnp.concatenate(parts, axis=-2)
 
 
@@ -161,8 +139,7 @@ def featuregram_slabbed(y, *, feat_name: str, slab_frames: int = 16384,
                         sr: int = 16000, n_fft: int = 400,
                         win_length: int = 400, hop_length: int = 160,
                         n_mels: int = 120, l_harm: int = 21,
-                        l_perc: int = 11, use_pallas: bool = False,
-                        dft_precision: str = "bf16x3",
+                        l_perc: int = 11,
                         top_db: float | None = 80.0,
                         device_out: bool = False):
     """Serving-path featuregram for one long recording: fixed-shape slab
@@ -170,8 +147,8 @@ def featuregram_slabbed(y, *, feat_name: str, slab_frames: int = 16384,
 
     ``featuregram`` jit-compiles per audio length — fine for training
     (the featurizer cache is length-bucketed) but wrong for serving,
-    where every new broadcast duration pays a fresh XLA compile
-    (measured: 27 s at 0.5 h of audio on v5e).  This helper runs the
+    where every new broadcast duration pays a fresh XLA compile.  This
+    helper runs the
     recording as ``slab_frames``-frame windows with ``l_harm//2``-frame
     real-audio margins at interior seams, so at most TWO compiled
     programs exist per configuration (edge / interior window shapes),
@@ -181,8 +158,8 @@ def featuregram_slabbed(y, *, feat_name: str, slab_frames: int = 16384,
     needs ``l_harm//2`` frames of time context; each window computes
     that margin from real audio and the margin frames are trimmed, so
     interior frames match exactly.  The first/last windows keep the
-    true global edge, so the kernel's spectral edge mirror fires
-    exactly where the whole-signal program's does.  librosa's
+    true global edge, so the symmetric edge padding applies exactly
+    where the whole-signal program's does.  librosa's
     ``top_db`` clamp references the max of each ``power_to_db`` call's
     input — i.e. the max PER COMPONENT for two-part [H; P] features and
     the whole-spectrogram max otherwise (``ops.mel.power_to_db``).
@@ -194,7 +171,7 @@ def featuregram_slabbed(y, *, feat_name: str, slab_frames: int = 16384,
     Returns a host ``numpy`` array ``(D, T)`` by default — serving
     output is consumed host-side (``StreamingSegmenter`` re-slabs it).
     With ``device_out=True`` the slabs are assembled on DEVICE and a
-    ``jax.Array`` is returned: the TPU-native serving chain
+    ``jax.Array`` is returned: the device serving chain
     (featurize -> scan segmenter) then never ships the featuregram over
     the host link — only raw audio goes up and probability tracks come
     down (``tools/bench_serving.py`` ``serve_dev`` leg).
@@ -213,8 +190,7 @@ def featuregram_slabbed(y, *, feat_name: str, slab_frames: int = 16384,
                          f"median margin {margin}")
     kw = dict(feat_name=feat_name, sr=sr, n_fft=n_fft,
               win_length=win_length, hop_length=hop_length,
-              n_mels=n_mels, l_harm=l_harm, l_perc=l_perc,
-              use_pallas=use_pallas, dft_precision=dft_precision)
+              n_mels=n_mels, l_harm=l_harm, l_perc=l_perc)
     xp = jnp if device_out else np
     if T <= S + margin:
         whole = featuregram(jnp.asarray(y)[None], top_db=top_db, **kw)[0]

@@ -1,9 +1,9 @@
-"""Mel featurization as MXU matmuls + fused elementwise log scaling.
+"""Mel featurization as matmuls + fused elementwise log scaling.
 
-The mel projection is a ``(n_mels, F) @ (F, T)`` matmul — exactly the shape
-the TPU MXU wants — and ``power_to_db`` is elementwise work XLA fuses into
-the same HBM pass.  Filterbanks are host-computed constants (closed over by
-jit), so they live in HBM once and stream through VMEM with the batch.
+The mel projection is a ``(n_mels, F) @ (F, T)`` matmul, and
+``power_to_db`` is elementwise work XLA fuses after it.  Filterbanks are
+host-computed constants (closed over by jit), so they live in device
+memory once.
 
 Semantics match the reference's librosa calls, including the deliberate
 quirk that the HPSS branches build the mel bank with librosa's default
@@ -42,8 +42,8 @@ def apply_mel(S: jax.Array, *, sr: int, n_mels: int) -> jax.Array:
     """
     n_fft = 2 * (S.shape[-2] - 1)
     M = _mel_basis(sr, n_fft, n_mels)
-    # HIGHEST: full-f32 MXU passes — the projection is tiny and feeds log
-    # scaling, so bf16 default precision would visibly move the features.
+    # HIGHEST: full-f32 products — the projection is tiny and feeds log
+    # scaling, so a TF32/bf16 default would visibly move the features.
     return jnp.einsum("mf,...ft->...mt", M, S,
                       preferred_element_type=jnp.float32,
                       precision=jax.lax.Precision.HIGHEST)

@@ -50,8 +50,8 @@ def extract_patches(FV: jax.Array, *, patch_size: int, patch_shift: int) -> jax.
     """``(..., D, T) -> (N, ..., D, patch_size)`` sliding windows.
 
     Applies the short-clip tiling rule, then extracts all windows with
-    XLA's native strided-patch op (a fancy-index gather scalarizes on
-    TPU).  Patch axis is leading so downstream code can treat it as batch.
+    XLA's native strided-patch op instead of a fancy-index gather.
+    Patch axis is leading so downstream code can treat it as batch.
     """
     T = FV.shape[-1]
     full_T = tiled_length(T, patch_size)

@@ -5,7 +5,7 @@ The reference repo (``/root/reference``) computes its features with librosa
 (``lib/preprocessing.py:355-457``).  librosa is not available in this
 environment, so this module re-implements the *documented algorithms* of the
 exact librosa entry points the reference uses, in plain numpy/scipy.  Every
-JAX/Pallas op in ``sm_hpss_mtl_tpu.ops`` is unit-tested against this module;
+JAX op in ``sm_hpss_mtl_tpu.ops`` is unit-tested against this module;
 this module itself is validated structurally (window identities, filterbank
 row sums, mask ranges) in ``tests/test_reference_dsp.py``.
 
@@ -38,7 +38,10 @@ Mapping to the reference's librosa calls:
   (``lib/preprocessing.py:337``).
 - :func:`istft` — inverse STFT (the reference repo ships pre-rendered
   HPSS demo audio in ``hpss_audio/`` but no resynthesis script; this is
-  the missing entry point per BASELINE.json config 1).
+  the missing entry point, ``cli.hpss_resynth``).
+- :func:`featuregram` — the featName dispatch of
+  ``lib/preprocessing.py:get_featuregram`` (:355-457) over the above, in
+  float64: the plain reference for ``ops.featuregram.featuregram``.
 """
 
 from __future__ import annotations
@@ -262,6 +265,40 @@ def hpss_masks(S: np.ndarray, l_harm: int = 21, l_perc: int = 11,
     """Just the two soft masks (for mask-fidelity testing)."""
     harm, perc = hpss_medians(S, l_harm, l_perc)
     return softmask(harm, perc, power=power), softmask(perc, harm, power=power)
+
+
+def featuregram(y: np.ndarray, feat_name: str, *, sr: int = 16000,
+                n_fft: int = 400, win_length: int = 400,
+                hop_length: int = 160, n_mels: int = 120,
+                l_harm: int = 21, l_perc: int = 11) -> np.ndarray:
+    """``(n_samples,)`` audio -> the ``(D, T)`` featuregram of one
+    featName (``[Log][Mel]{Spec,HarmSpec,PercSpec,HarmPercSpec}``).
+
+    Plain-spectrogram features use the true ``sr``; the HPSS branches
+    build their mel bank at librosa's default 22050 Hz, and ``[H; P]``
+    features run one ``power_to_db`` per component, as the reference
+    does (``lib/preprocessing.py:408-422``)."""
+    name = feat_name
+    log = name.startswith("Log")
+    name = name[3:] if log else name
+    mel = name.startswith("Mel")
+    name = name[3:] if mel else name
+    comps = {"Spec": "", "HarmSpec": "H", "PercSpec": "P",
+             "HarmPercSpec": "HP"}[name]
+    y = np.asarray(y, np.float64)
+    S = stft_mag(y, n_fft, win_length, hop_length)
+    if not comps:
+        X = (melspectrogram_from_audio(y, sr, n_fft, win_length, hop_length,
+                                       n_mels) if mel else S)
+        return power_to_db(X ** 2) if log else X
+    H, P = hpss(S, l_harm, l_perc)
+    parts = []
+    for c in comps:
+        X = np.asarray(H if c == "H" else P, np.float64)
+        if mel:
+            X = melspectrogram_from_S(X, n_mels)
+        parts.append(power_to_db(X ** 2) if log else X)
+    return np.concatenate(parts, axis=0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,16 @@
 """Batched STFT / iSTFT / RMS framing as XLA ops.
 
-TPU-native replacement for the reference's librosa STFT calls
+JAX replacement for the reference's librosa STFT calls
 (``/root/reference/lib/preprocessing.py:381,387,407,417``).
 
-Design note (measured, v5e): a gather-based framing (``y[..., idx]``)
-lowers to a scalarized gather on TPU and runs ~1000x slower than the
-compute it feeds.  Instead:
+Design note: framing avoids a gather (``y[..., idx]``).  Instead:
 
-- **STFT = windowed DFT as a convolution.**  The rFFT of a 400-sample
+- **STFT = windowed DFT as a matmul.**  The rFFT of a 400-sample
   Hann-windowed frame is a fixed linear map, so the whole STFT is one
-  ``lax.conv_general_dilated`` with a ``(2F, 1, n_fft)`` kernel holding
-  the windowed cos/−sin basis, stride = hop.  That lands on the MXU
-  (~15 GMAC for 16x30 s of audio — microseconds), avoids both the
-  gather and the TPU's comparatively weak FFT path, and is exact to
-  f32 with HIGHEST precision.
+  ``(n_fft, 2F)`` matmul against the windowed cos/−sin basis over
+  frames assembled from strided slices, exact to f32 with HIGHEST
+  precision.  Whether a framed ``jnp.fft.rfft`` (cuFFT) is as fast on
+  the GPU is an open measurement (ROADMAP Design 5).
 - **Frame extraction** (for RMS etc.) uses
   ``lax.conv_general_dilated_patches``, XLA's native strided-patch op.
 
@@ -48,8 +45,8 @@ def n_frames(n_samples: int, frame_length: int, hop_length: int) -> int:
 def frame(y: jax.Array, frame_length: int, hop_length: int) -> jax.Array:
     """Frame the last axis: ``(..., n) -> (..., n_frames, frame_length)``.
 
-    center=False semantics via XLA's native patch-extraction op (a gather
-    here would scalarize on TPU).
+    center=False semantics via XLA's native patch-extraction op instead
+    of a gather.
     """
     lead = y.shape[:-1]
     x = y.reshape((-1, 1, y.shape[-1]))
@@ -81,9 +78,7 @@ def _stft_reim(y: jax.Array, n_fft: int, win_length: int, hop_length: int):
     reshaped into g-sample blocks; frame ``t`` is blocks
     ``[t*hop/g : t*hop/g + n_fft/g]``, gathered as ``n_fft/g`` strided
     slices (regular XLA slices, not gathers), stacked and hit with ONE
-    ``(n_fft, 2F)`` windowed-DFT matmul on the MXU.  Measured ~10x faster
-    on v5e than the equivalent strided conv, and ~1000x faster than
-    fancy-index framing + FFT.
+    ``(n_fft, 2F)`` windowed-DFT matmul.
     """
     import math
 
@@ -100,9 +95,10 @@ def _stft_reim(y: jax.Array, n_fft: int, win_length: int, hop_length: int):
     views = [jax.lax.slice(x, (0, j, 0), (x.shape[0], j + s * (T - 1) + 1, g),
                            (1, s, 1)) for j in range(k)]      # k x (B, T, g)
     frames = jnp.concatenate(views, axis=-1)                  # (B, T, n_fft)
-    # Keep XLA from fusing the strided-slice assembly INTO the matmul —
-    # fused, the convolutional gather runs inside the MXU loop and the
-    # whole STFT is ~3x slower (measured on v5e: 5.4 ms vs 1.7 ms).
+    # Keep XLA from fusing the strided-slice assembly INTO the matmul,
+    # so the frames are assembled once and the product reads them
+    # contiguously (kept from the first design; ROADMAP Design 5
+    # re-measures it on the GPU).
     frames = jax.lax.optimization_barrier(frames)
 
     kernel = jnp.asarray(_dft_kernel(n_fft, win_length)[:, 0, :])  # (2F, n_fft)

@@ -3,17 +3,17 @@
 The reference is strictly single-process/single-GPU
 (``/root/reference/Proposed_Work_Results.py:31-41`` pins one GPU and one
 CPU thread); SURVEY.md §2.5/§5 makes multi-host support a first-class
-component of the TPU rebuild: ``jax.distributed.initialize()`` for the
-coordination service, XLA collectives over ICI within a slice and DCN
-across slices, and per-process input sharding so each host feeds a
-disjoint slice of the global batch.
+component of the rebuild: ``jax.distributed.initialize()`` for the
+coordination service, XLA collectives (NCCL between GPUs), and
+per-process input sharding so each host feeds a disjoint slice of the
+global batch.
 
-Design: initialization is **env-gated** — on real TPU pods
-``jax.distributed.initialize()`` auto-detects the coordinator from the
-TPU metadata; elsewhere the standard ``JAX_COORDINATOR_ADDRESS`` /
-``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` triple configures it
-explicitly.  Single-process runs (the common dev case, and the only one
-this environment can execute) are a no-op, so every entry point can call
+Design: initialization is **env-gated** — the standard
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``
+triple configures it explicitly (nothing on a plain GPU host tells JAX
+of a cluster), or ``SMHPSS_DISTRIBUTED=1`` defers to a cluster
+environment JAX can auto-detect.  Single-process runs (the common dev
+case) are a no-op, so every entry point can call
 ``initialize_from_env()`` unconditionally.
 """
 
@@ -32,8 +32,8 @@ def initialize_from_env() -> bool:
 
     Triggers (checked in order):
       * ``SMHPSS_DISTRIBUTED=1`` — pod/auto-detect mode: bare
-        ``initialize()`` (TPU pods resolve coordinator + process id from
-        platform metadata).
+        ``initialize()`` (a cluster environment JAX auto-detects
+        supplies the coordinator and process id).
       * ``JAX_COORDINATOR_ADDRESS`` set — explicit mode: also reads
         ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``.
       * neither — single-process; returns False without touching jax.

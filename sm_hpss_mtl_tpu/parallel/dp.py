@@ -2,7 +2,7 @@
 
 The train step from ``train.state`` is compiled with the batch sharded
 over the mesh 'data' axis and all state replicated; XLA inserts the
-gradient all-reduces (psum over ICI) from the sharding annotations —
+gradient all-reduces (psum) from the sharding annotations —
 the pjit recipe, not a port of any host-side loop.  BatchNorm statistics
 are computed over the *global* batch automatically (GSPMD reduces across
 shards), sidestepping the per-replica-BN divergence SURVEY.md §7 flags.

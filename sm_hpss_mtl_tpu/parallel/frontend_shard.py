@@ -1,23 +1,24 @@
-"""Time-sharded fused audio->feature frontend.
+"""Time-sharded audio->feature frontend.
 
-Multi-chip version of ``ops.frontend_pallas``: the raw audio is sharded
-along time across the mesh's ``time`` axis, each chip exchanges the
-small audio halo with its ring neighbors over ICI (``lax.ppermute``) and
-runs the fused DFT+HPSS+mel kernel on its local chunk.  Compared with
-the spectral halo exchange (``parallel.halo``), the wire traffic is raw
-audio — ``l_harm//2 * hop`` samples per boundary, ~25x smaller than the
-same halo in spectrogram frames — and each chip's HBM only ever holds
-audio plus mel features, never the full-resolution spectrogram.
+The raw audio is sharded along time across the mesh's ``time`` axis;
+each device exchanges a small audio halo with its ring neighbours
+(``lax.ppermute``) and runs the plain XLA chain on its local chunk:
+``stft_mag`` on the extended audio, the symmetric spectral edge mirror
+on the first and last shards only, the HPSS medians and masks, and the
+mel projection.  Compared with the spectral halo exchange
+(``parallel.halo``), the wire traffic is raw audio — ``l_harm//2 * hop``
+samples per boundary, ~25x smaller than the same halo in spectrogram
+frames — and no device ever holds more than its own block of the
+spectrogram.
 
-Shard-boundary correctness: interior boundaries receive real neighbor
-audio, so their median windows are exact; the kernel's global-edge
-symmetric mirror is gated by a per-shard scalar flag
-(``edge_flags = [axis_index == 0, axis_index == n-1]``) so it fires
-only on the true first/last shards.  Output is equal to the unsharded
-``stft_hpss_mel`` up to f32 rounding.
+Shard-boundary correctness: interior boundaries receive real neighbour
+audio, so their median windows are exact; the global-edge symmetric
+mirror is selected per shard (``axis_index == 0`` / ``== n-1``), so it
+applies only on the true first/last shards.  Output equals the
+unsharded ``ops.featuregram.stft_hpss`` up to f32 rounding.
 
 This is how the DAFx12-style multi-hour broadcast featurization
-(``/root/reference/DAFx12_...py:594-706``) scales past one chip.
+(``/root/reference/DAFx12_...py:594-706``) scales past one device.
 """
 
 from __future__ import annotations
@@ -29,13 +30,16 @@ import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
+from ..ops import featuregram as fg
+from ..ops import stft as stft_mod
+from ..ops.hpss import hpss_from_time_extended
+
 
 def stft_hpss_mel_time_sharded(
         y: jax.Array, mel_basis, mesh: Mesh, *, n_fft: int = 400,
         win_length: int = 400, hop_length: int = 160, l_harm: int = 21,
-        l_perc: int = 11, power: float = 2.0, tile_t: int = 768,
-        dft_precision: str = "bf16x3", axis: str = "time",
-        interpret: bool | None = None) -> tuple[jax.Array, jax.Array]:
+        l_perc: int = 11, power: float = 2.0,
+        axis: str = "time") -> tuple[jax.Array, jax.Array]:
     """Audio ``(B, n_samples)`` -> ``(mel(H), mel(P))``, time-sharded.
 
     ``mel_basis=None`` emits full-resolution masked magnitudes
@@ -44,12 +48,8 @@ def stft_hpss_mel_time_sharded(
 
     Requirements: the frame count ``T = 1 + (n - n_fft) // hop`` must
     divide evenly by the ``axis`` size, and each local block must hold
-    at least ``2 * (l_harm // 2)`` frames.  ``interpret=None`` picks
-    Pallas on TPU and interpret mode elsewhere (so the sharding logic is
-    testable on the virtual CPU mesh).
+    at least ``2 * (l_harm // 2)`` frames.
     """
-    from ..ops import frontend_pallas as fp
-
     B, N = y.shape
     ht = l_harm // 2
     n = mesh.shape[axis]
@@ -59,8 +59,6 @@ def stft_hpss_mel_time_sharded(
     T_local = T // n
     if T_local < 2 * ht:
         raise ValueError("local time block smaller than 2*(l_harm//2)")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
 
     halo = ht * hop_length
     tail_len = n_fft - hop_length   # samples past the last frame start
@@ -68,33 +66,21 @@ def stft_hpss_mel_time_sharded(
     tail = y[:, T * hop_length:(T - 1) * hop_length + n_fft]
     tail = tail.astype(jnp.float32)
     emit_mel = mel_basis is not None
-    # The full-res variant caps its tile lower (VMEM; see _dispatch) —
-    # and a dummy 1-mel basis rides the replicated slot when unused.
-    if emit_mel:
-        M = jnp.asarray(mel_basis, jnp.float32)
-    else:
-        tile_t = min(tile_t, 512)
-        M = jnp.zeros((1, 1 + n_fft // 2), jnp.float32)
+    # A dummy 1-mel basis rides the replicated slot when unused.
+    M = (jnp.asarray(mel_basis, jnp.float32) if emit_mel
+         else jnp.zeros((1, 1 + n_fft // 2), jnp.float32))
 
-    body_spec = P(None, axis)
-    out_spec = P(None, None, axis)
-    rep = P(None, None)
-
+    @jax.jit
     @functools.partial(
         shard_map, mesh=mesh,
-        in_specs=(body_spec, rep, rep),
-        out_specs=(out_spec, out_spec),
-        # pallas_call's out_shape carries no varying-mesh-axes info, so
-        # shard_map's vma checker can't see through it.
-        check_vma=False)
+        in_specs=(P(None, axis), P(None, None), P(None, None)),
+        out_specs=(P(None, None, axis), P(None, None, axis)))
     def _fn(y_local, tail_rep, M_rep):
         idx = jax.lax.axis_index(axis)
-        # Left halo: my left neighbor's last `halo` samples.
+        # Left halo: my left neighbour's last `halo` samples.
         right_perm = [(i, (i + 1) % n) for i in range(n)]
         left_halo = jax.lax.ppermute(y_local[:, -halo:], axis, right_perm)
-        left_halo = jnp.where(idx == 0, jnp.zeros_like(left_halo),
-                              left_halo)
-        # Right extension: neighbor's first `halo + tail_len` samples;
+        # Right extension: neighbour's first `halo + tail_len` samples;
         # the last shard substitutes the replicated global tail + zeros.
         left_perm = [(i, (i - 1) % n) for i in range(n)]
         right_ext = jax.lax.ppermute(y_local[:, :halo + tail_len], axis,
@@ -103,17 +89,24 @@ def stft_hpss_mel_time_sharded(
             [tail_rep, jnp.zeros((y_local.shape[0], halo), jnp.float32)],
             axis=-1)
         right_ext = jnp.where(idx == n - 1, own_tail, right_ext)
-
         y_ext = jnp.concatenate([left_halo, y_local, right_ext], axis=-1)
-        flags = jnp.stack([(idx == 0).astype(jnp.int32),
-                           (idx == n - 1).astype(jnp.int32)])[None, :]
-        return fp._frontend_pallas(
-            y_ext, M_rep.T if emit_mel else None, n_fft=n_fft,
-            win_length=win_length, hop_length=hop_length, l_harm=l_harm,
-            l_perc=l_perc, power=power,
-            tile_t=fp._pick_tile(T_local, tile_t),
-            dft_precision=dft_precision, halo_in_audio=True,
-            edge_flags=flags, interpret=interpret)
+
+        # (B, F, T_local + 2*ht): frames [-ht, T_local + ht) of the block.
+        S = stft_mod.stft_mag(y_ext, n_fft=n_fft, win_length=win_length,
+                              hop_length=hop_length)
+        # Global edges: frame -1-i mirrors frame i, and frame T+m mirrors
+        # frame T-1-m (scipy's 'reflect'), on the edge shards only.
+        left = jnp.where(idx == 0, jnp.flip(S[..., ht:2 * ht], -1),
+                         S[..., :ht])
+        right = jnp.where(idx == n - 1,
+                          jnp.flip(S[..., T_local:T_local + ht], -1),
+                          S[..., T_local + ht:])
+        S = jnp.concatenate([left, S[..., ht:T_local + ht], right], axis=-1)
+        H, Pc = hpss_from_time_extended(S, l_harm=l_harm, l_perc=l_perc,
+                                        power=power)
+        if emit_mel:
+            return fg.mel_project(H, M_rep), fg.mel_project(Pc, M_rep)
+        return H, Pc
 
     return _fn(body, tail, M)
 
@@ -125,19 +118,18 @@ def featuregram_time_sharded(y: jax.Array, mesh: Mesh, *,
                              n_mels: int = 120, l_harm: int = 21,
                              l_perc: int = 11,
                              axis: str = "time") -> jax.Array:
-    """Multi-chip featuregram for long recordings: the HPSS featName
+    """Multi-device featuregram for long recordings: the HPSS featName
     families (Mel/LogMel and full-resolution (Log)Harm/Perc/HarmPerc)
-    computed via the time-sharded fused frontend.
+    computed via the time-sharded frontend.
 
     This is the multi-hour-broadcast featurization path of the DAFx12
     driver (``/root/reference/DAFx12_...py:594-706``) scaled across
-    chips.  Frame counts that don't divide the ``axis`` size are
+    devices.  Frame counts that don't divide the ``axis`` size are
     zero-padded to the next multiple and trimmed; the final
     ``l_harm//2`` frames (whose median windows would see pad audio
     instead of the symmetric spectral boundary) are recomputed exactly
-    on a ~3*(l_harm//2)-frame oracle slab and spliced in.
+    on a ~3*(l_harm//2)-frame unsharded slab and spliced in.
     """
-    from ..ops import frontend_pallas as fp
     from ..ops import mel as mel_mod
     from ..ops.featuregram import _MEL_SR_QUIRK, _parse
 
@@ -172,7 +164,7 @@ def featuregram_time_sharded(y: jax.Array, mesh: Mesh, *,
         k = 3 * ht
         t0 = (T - k) * hop_length
         t1 = (T - 1) * hop_length + n_fft
-        th, tp = fp._oracle(y[:, t0:t1], M, power=2.0, **kw)
+        th, tp = fg.stft_hpss(y[:, t0:t1], M, **kw)
         H = jnp.concatenate([H[..., :T - ht], th[..., -ht:]], axis=-1)
         P = jnp.concatenate([P[..., :T - ht], tp[..., -ht:]], axis=-1)
 

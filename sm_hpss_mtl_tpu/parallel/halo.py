@@ -3,13 +3,13 @@
 The sequence-parallel component SURVEY.md §2.5 calls for: the harmonic
 median filter needs ``l_harm//2`` frames of context on each side, so a
 spectrogram sharded along time across chips exchanges that halo with its
-ring neighbors (``lax.ppermute`` over ICI) and computes its interior
+ring neighbors (``lax.ppermute``) and computes its interior
 locally; the global edges use the same symmetric reflection as the
 unsharded op.  Output is bit-identical to ``ops.hpss.hpss`` on the
 gathered array.
 
 This is how multi-hour broadcast audio (the DAFx12 streaming use case,
-``/root/reference/DAFx12_...py:634-676``) scales past one chip's HBM.
+``/root/reference/DAFx12_...py:634-676``) scales past one device's memory.
 """
 
 from __future__ import annotations
@@ -21,25 +21,7 @@ import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops.hpss import _sliding_median, softmask
-
-
-def _hpss_from_extended(S_ext: jax.Array, l_harm: int, l_perc: int,
-                        power: float):
-    """HPSS whose time axis is already extended by ``l_harm//2`` on each
-    side; frequency is symmetric-padded internally as usual."""
-    ht = l_harm // 2
-    T = S_ext.shape[-1] - 2 * ht
-    windows = jnp.stack(
-        [jax.lax.slice_in_dim(S_ext, k, k + T, axis=S_ext.ndim - 1)
-         for k in range(l_harm)], axis=0)
-    harm = jnp.median(windows, axis=0)
-    S = jax.lax.slice_in_dim(S_ext, ht, ht + T, axis=S_ext.ndim - 1)
-    perc = _sliding_median(S, l_perc, axis=S.ndim - 2)
-    mh = softmask(harm, perc, power)
-    mp = softmask(perc, harm, power)
-    S = S.astype(jnp.float32)
-    return S * mh, S * mp
+from ..ops.hpss import hpss_from_time_extended
 
 
 def hpss_time_sharded(S: jax.Array, mesh: Mesh, *, l_harm: int = 21,
@@ -62,6 +44,7 @@ def hpss_time_sharded(S: jax.Array, mesh: Mesh, *, l_harm: int = 21,
 
     spec = P(*([None] * (S.ndim - 1) + [axis]))
 
+    @jax.jit
     @functools.partial(
         shard_map, mesh=mesh, in_specs=(spec,), out_specs=(spec, spec))
     def _fn(S_local):
@@ -78,6 +61,7 @@ def hpss_time_sharded(S: jax.Array, mesh: Mesh, *, l_harm: int = 21,
         left_halo = jnp.where(idx == 0, reflect_l, left_halo)
         right_halo = jnp.where(idx == n - 1, reflect_r, right_halo)
         ext = jnp.concatenate([left_halo, S_local, right_halo], axis=-1)
-        return _hpss_from_extended(ext, l_harm, l_perc, power)
+        return hpss_from_time_extended(ext, l_harm=l_harm, l_perc=l_perc,
+                                       power=power)
 
     return _fn(S)

@@ -1,12 +1,14 @@
 """Device mesh helpers.
 
-The reference is single-GPU (SURVEY.md §2.5); multi-chip support here is
+The reference is single-GPU (SURVEY.md §2.5); multi-device support here is
 a new first-class component: a ``Mesh`` with a ``data`` axis for batch
 (data-parallel) sharding and a ``time`` axis for sharding long
 spectrogram time axes (the sequence-parallel analog used by
-``parallel.halo``).  Within a slice the collectives ride ICI; XLA
-inserts them from sharding annotations (GSPMD) — no hand-written
-transport.
+``parallel.halo``).  XLA inserts the collectives from sharding
+annotations (GSPMD), which NCCL carries between GPUs — no hand-written
+transport.  The mesh is a plain reshape of the device list: every GPU of
+an NVLink host reaches every other at the same rate, so the layout
+follows the algorithm alone.
 """
 
 from __future__ import annotations

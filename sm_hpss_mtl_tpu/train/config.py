@@ -82,37 +82,32 @@ class ExperimentConfig:
     l2_reg: float = 0.01
     #: parallel host pipelines feeding the training stream
     prefetch_workers: int = 2
-    #: 'auto' (default) = device pipeline on TPU, host elsewhere;
+    #: 'auto' (default) = host (on an H100 the device pipeline tied it
+    #: end to end; PERF.md);
     #: 'host' = featurize on host, feed patch batches (reference-parity
     #: semantics); 'device' = host streams raw-audio crops and
     #: STFT/HPSS/mel/patching/training run in ONE XLA program
-    #: (train.endtoend) — the TPU-native fast path, ~20-40x less host
-    #: work per step.  Matched-seed quality A/B: host 0.8841 vs device
-    #: 0.8917 mean accuracy (AB_PIPELINE.json); semantic deltas
-    #: documented at data/audiostream.py:11-26.
+    #: (train.endtoend), with far less host work per step.  Semantic
+    #: deltas are documented at data/audiostream.py:11-26.
     pipeline: str = "auto"
     #: device pipeline: patches per sampled clip crop (clips per class =
     #: ceil(batch_size / clip_patches)).  0 (default) = adaptive: 1 when
     #: the smallest training class has fewer than 8*batch_size clips
     #: (small corpora need maximal per-step clip diversity — at
-    #: clip_patches>1 the measured real-audio accuracy drops 0.797->0.719
-    #: with early-stop collapses, REAL_AUDIO.json tpu_device_pipeline),
-    #: else 4 (large corpora: fewer host crop slices per step, no
-    #: measured quality cost).
+    #: clip_patches>1 a real-audio ablation lost accuracy, with
+    #: early-stop collapses), else 4 (large corpora: fewer host crop
+    #: slices per step).  ROADMAP Reach 2 re-checks these defaults.
     clip_patches: int = 0
     #: device pipeline: floor on the crop length in seconds — the crop-
     #: local standardization sees at least this much context while only
     #: clip_patches windows train.  0 (default) keeps the minimal
-    #: geometric crop; the real-audio ablation (REAL_AUDIO.json) found
+    #: geometric crop; a real-audio ablation found
     #: no quality gain from longer standardization context, so this is
     #: an experiment knob, not a tuned default.
     min_crop_s: float = 0.0
     #: 'float32' (reference parity) or 'bfloat16' (mixed-precision compute;
     #: params, BatchNorm stats, head outputs and losses stay f32)
     compute_dtype: str = "float32"
-    #: fused-frontend DFT precision: 'bf16x3' or 'highest' (NOTES.md
-    #: precision policy)
-    dft_precision: str = "bf16x3"
     seed: int = 0
     # Derived step counts (0 = compute from durations).
     tr_steps: int = 0
@@ -148,7 +143,7 @@ class ExperimentConfig:
             win_length=int(self.Tw * 16000 / 1000),
             hop_length=int(self.Ts * 16000 / 1000),
             n_mels=n_mels, l_harm=self.l_harm, l_perc=self.l_perc,
-            Tw=self.Tw, Ts=self.Ts, dft_precision=self.dft_precision)
+            Tw=self.Tw, Ts=self.Ts)
 
     def with_steps_from_durations(self, total_duration_hours: dict
                                   ) -> "ExperimentConfig":

@@ -3,7 +3,7 @@ jitted step.
 
 The reference's pipeline (and our default path) featurizes on the host
 and feeds patch batches to the device.  This module compiles the whole
-chain — STFT, (Pallas) HPSS, mel/log, per-clip standardization, patch
+chain — STFT, HPSS, mel/log, per-clip standardization, patch
 windowing, forward/backward — into a single XLA program, so training
 consumes raw audio batches directly.  Under GSPMD the audio batch shards
 over the 'data' mesh axis and the featurization runs sharded alongside
@@ -26,7 +26,7 @@ from ..data.featurize import FeatureConfig
 from ..ops import featuregram as fg
 from ..ops.patches import extract_patches, standardize_rows
 from .losses import categorical_crossentropy, mtl_loss
-from .state import TrainState, _augment
+from .state import TrainState, _augment, l2_penalty
 
 
 def device_featurize_patches(audio: jax.Array, cfg: FeatureConfig, *,
@@ -34,7 +34,6 @@ def device_featurize_patches(audio: jax.Array, cfg: FeatureConfig, *,
                              input_kind: str = "time_mel",
                              skewness_vector: str | None = None,
                              fold_stats=None,
-                             use_pallas: bool | None = None,
                              max_patches: int | None = None) -> jax.Array:
     """``(B, n) audio -> (B*k, ...) model-ready patches`` on device.
 
@@ -50,16 +49,12 @@ def device_featurize_patches(audio: jax.Array, cfg: FeatureConfig, *,
     standardization still sees the WHOLE crop's frames — this decouples
     the statistics context from the patch budget (short crops give
     noisy crop-local stats on non-stationary real audio; see
-    REAL_AUDIO.json pipeline A/B and ``AudioCropBatcher.min_crop_s``).
+    ``AudioCropBatcher.min_crop_s``).
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     fv = fg.featuregram(audio, feat_name=cfg.feat_name, sr=cfg.sr,
                         n_fft=cfg.n_fft, win_length=cfg.win_length,
                         hop_length=cfg.hop_length, n_mels=cfg.n_mels,
-                        l_harm=cfg.l_harm, l_perc=cfg.l_perc,
-                        use_pallas=use_pallas,
-                        dft_precision=cfg.dft_precision)  # (B, D, T)
+                        l_harm=cfg.l_harm, l_perc=cfg.l_perc)  # (B, D, T)
     if fold_stats is not None:
         mean, stdev = (jnp.asarray(a, jnp.float32) for a in fold_stats)
         fv = (fv - mean[None, :, None]) / (stdev[None, :, None] + 1e-10)
@@ -106,18 +101,16 @@ def make_audio_train_step(model, optimizer, cfg: FeatureConfig, *,
                           loss_weights: dict | None = None,
                           l2_reg: float = 0.0,
                           augment_noise: bool = False,
-                          use_pallas: bool | None = None,
                           n_patches_per_clip: int | None = None) -> Callable:
     """Jitted ``(state, audio (B,n), clip_labels, rng) -> (state, metrics)``
     doing featurization and the optimizer update in one program."""
-    import flax
     import optax
 
     def loss_fn(params, batch_stats, audio, labels, rng):
         batch = device_featurize_patches(
             audio, cfg, patch_size=patch_size, patch_shift=patch_shift,
             input_kind=input_kind, skewness_vector=skewness_vector,
-            fold_stats=fold_stats, use_pallas=use_pallas,
+            fold_stats=fold_stats,
             max_patches=n_patches_per_clip)
         if augment_noise:
             rng, aug = jax.random.split(rng)
@@ -134,12 +127,7 @@ def make_audio_train_step(model, optimizer, cfg: FeatureConfig, *,
             total = categorical_crossentropy(outputs, labels)
             per_head = {"3C": total}
         if l2_reg:
-            reg = sum(jnp.sum(x ** 2)
-                      for path, x in
-                      flax.traverse_util.flatten_dict(params).items()
-                      if path[-1] == "kernel"
-                      and any("heads" in p or "melCl" in p for p in path))
-            total = total + l2_reg * reg
+            total = total + l2_reg * l2_penalty(params)
         return total, (per_head, mutated["batch_stats"], outputs, labels)
 
     @jax.jit
@@ -168,7 +156,6 @@ def make_audio_eval_step(model, cfg: FeatureConfig, *, patch_size: int,
                          skewness_vector: str | None = None,
                          fold_stats=None,
                          loss_weights: dict | None = None,
-                         use_pallas: bool | None = None,
                          n_patches_per_clip: int | None = None) -> Callable:
     """Jitted ``(state, audio, clip_labels) -> metrics`` — the eval analog
     of :func:`make_audio_train_step` (featurize + forward + losses in one
@@ -179,7 +166,7 @@ def make_audio_eval_step(model, cfg: FeatureConfig, *, patch_size: int,
         batch = device_featurize_patches(
             audio, cfg, patch_size=patch_size, patch_shift=patch_shift,
             input_kind=input_kind, skewness_vector=skewness_vector,
-            fold_stats=fold_stats, use_pallas=use_pallas,
+            fold_stats=fold_stats,
             max_patches=n_patches_per_clip)
         k = jax.tree_util.tree_leaves(batch)[0].shape[0] // audio.shape[0]
         labels_p = _broadcast_labels(labels, k)

@@ -3,8 +3,8 @@
 The reference tunes sequentially — keras-tuner trains one trial at a
 time (``/root/reference/B3_architecture_tuning.py:402-411``) and the
 loss-weight grid retrains the model once per setting
-(``/root/reference/Hyperparameter_Selection.py:541-552``).  On TPU,
-trials whose *parameter shapes* agree (loss-weight settings, learning
+(``/root/reference/Hyperparameter_Selection.py:541-552``).  On a
+device, trials whose *parameter shapes* agree (loss-weight settings, learning
 rates, seed replicates) need not be sequential: stack their states along
 a leading trial axis and ``jax.vmap`` the train step, so all trials
 advance in a single XLA program per step, sharing one host batch stream
@@ -39,7 +39,7 @@ import numpy as np
 import optax
 
 from .losses import categorical_crossentropy, mtl_loss
-from .state import TrainState, _augment
+from .state import TrainState, _augment, l2_penalty
 
 
 def stack_hyperparams(trials: list[dict], heads: tuple | None) -> dict:
@@ -104,13 +104,7 @@ def make_multi_train_step(model, optimizer, *, mtl: bool,
             total = categorical_crossentropy(outputs, labels)
             per_head = {"3C": total}
         if l2_reg:
-            import flax
-            reg = sum(jnp.sum(x ** 2)
-                      for path, x in
-                      flax.traverse_util.flatten_dict(params).items()
-                      if path[-1] == "kernel"
-                      and any("heads" in p or "melCl" in p for p in path))
-            total = total + l2_reg * reg
+            total = total + l2_reg * l2_penalty(params)
         return total, (per_head, mutated["batch_stats"], outputs)
 
     def single(state: TrainState, batch, labels, rng, hyper):

@@ -4,23 +4,25 @@ The reference trains through ``model.fit`` on a compiled Keras model
 (``/root/reference/Proposed_Work_Results.py:298-307``).  Here the train
 step is one jitted function — forward, loss, backward, optimizer update,
 BatchNorm running-stat update — so a whole step is a single XLA program
-on the TPU.  The same step function runs under ``pjit``/``shard_map``
+on the device.  The same step function runs under ``pjit``/``shard_map``
 for data parallelism (see ``sm_hpss_mtl_tpu.parallel``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
-import flax
 import jax
 import jax.numpy as jnp
 import optax
 
+from ..models.nn import flatten_dict
 from .losses import categorical_crossentropy, mtl_loss
 
 
-@flax.struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class TrainState:
     params: Any
     batch_stats: Any
@@ -36,6 +38,14 @@ class TrainState:
         return cls(params=params, batch_stats=batch_stats,
                    opt_state=optimizer.init(params),
                    step=jnp.zeros((), jnp.int32))
+
+
+def l2_penalty(params) -> jax.Array:
+    """Sum of squared head and mel-layer kernels: the layers the
+    reference gives a Keras ``kernel_regularizer=l2()``."""
+    return sum(jnp.sum(x ** 2) for path, x in flatten_dict(params).items()
+               if path[-1] == "kernel"
+               and any("heads" in p or "melCl" in p for p in path))
 
 
 #: Gaussian augmentation scales (``Proposed_Work_Results.py:240``).
@@ -85,12 +95,7 @@ def make_train_step(model, optimizer, *, mtl: bool,
             total = categorical_crossentropy(outputs, labels)
             per_head = {"3C": total}
         if l2_reg:
-            reg = sum(jnp.sum(x ** 2)
-                      for path, x in
-                      flax.traverse_util.flatten_dict(params).items()
-                      if path[-1] == "kernel" and any("heads" in p or "melCl" in p
-                                                      for p in path))
-            total = total + l2_reg * reg
+            total = total + l2_reg * l2_penalty(params)
         return total, (per_head, mutated["batch_stats"], outputs)
 
     @jax.jit

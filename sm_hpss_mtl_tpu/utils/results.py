@@ -58,18 +58,18 @@ def append_analysis(path: str, results: dict) -> str:
 
 def dump_model_summary(path: str, module, sample_input, *,
                        train: bool = False) -> str:
-    """Write a Keras-style layer table (``misc.print_model_summary``,
-    ``/root/reference/lib/misc.py:184-189``) via ``flax.linen.tabulate``."""
+    """Write a Keras-style parameter table (``misc.print_model_summary``,
+    ``/root/reference/lib/misc.py:184-189``) via ``models.nn.param_table``."""
     import os
 
-    import flax.linen as nn
     import jax
 
+    from ..models.nn import param_table
+
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    table = nn.tabulate(
-        module, jax.random.PRNGKey(0),
-        compute_flops=False, compute_vjp_flops=False)(
-        sample_input, train=train)
+    table = param_table(module, {"params": jax.random.PRNGKey(0),
+                                 "dropout": jax.random.PRNGKey(0)},
+                        sample_input, train=train)
     with open(path, "w", encoding="utf-8") as f:
         f.write(table)
     return path

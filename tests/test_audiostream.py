@@ -131,12 +131,12 @@ def test_audio_eval_step_matches_patch_eval(toy):
     spec = get_model("Lemaire_et_al_MTL", n_mels=12, dropout_rate=0.0)
     opt, _ = for_model("Lemaire_et_al_MTL", tr_steps=10)
     patches = device_featurize_patches(audio, cfg, patch_size=16,
-                                       patch_shift=16, use_pallas=False)
+                                       patch_shift=16)
     state = TrainState.create(spec.module, opt, patches,
                               jax.random.PRNGKey(0))
 
     a_eval = make_audio_eval_step(spec.module, cfg, patch_size=16,
-                                  patch_shift=16, use_pallas=False)
+                                  patch_shift=16)
     m1 = a_eval(state, audio, labels)
     k = patches.shape[0] // audio.shape[0]
     m2 = make_eval_step(spec.module, mtl=True)(
@@ -181,10 +181,8 @@ def test_device_featurize_frame_scaling(rng):
     stdev = np.abs(rng.standard_normal(D)).astype(np.float32) + 0.5
     got = device_featurize_patches(audio, cfg, patch_size=12,
                                    patch_shift=12, input_kind="image",
-                                   fold_stats=(mean, stdev),
-                                   use_pallas=False)[..., 0]
-    fv = fg.featuregram(audio, feat_name=cfg.feat_name, n_mels=8,
-                        use_pallas=False)
+                                   fold_stats=(mean, stdev))[..., 0]
+    fv = fg.featuregram(audio, feat_name=cfg.feat_name, n_mels=8)
     fv = (np.asarray(fv) - mean[None, :, None]) / (stdev[None, :, None]
                                                    + 1e-10)
     want = np.asarray(extract_patches(jnp.asarray(fv), patch_size=12,
@@ -219,13 +217,11 @@ def test_device_featurize_skewness_vector(rng):
     cfg = FeatureConfig(feat_name="LogMelHarmPercSpec", n_mels=8)
     audio = jnp.asarray(rng.standard_normal((2, 16000)).astype(np.float32))
     plain = device_featurize_patches(audio, cfg, patch_size=12,
-                                     patch_shift=12, input_kind="image",
-                                     use_pallas=False)[..., 0]  # (N, D, W)
+                                     patch_shift=12, input_kind="image")[..., 0]  # (N, D, W)
     for sv, axis in (("Row", 1), ("Col", 0)):
         got = device_featurize_patches(audio, cfg, patch_size=12,
                                        patch_shift=12, input_kind="image",
-                                       skewness_vector=sv,
-                                       use_pallas=False)[..., 0]
+                                       skewness_vector=sv)[..., 0]
         want = np.asarray(patch_statistics(plain, stat_type="skew",
                                            axis=axis))
         want = want[:, :, None] if axis == 1 else want[:, None, :]

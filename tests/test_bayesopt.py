@@ -3,7 +3,7 @@
 Mirrors the reference tuner's two algorithms
 (``/root/reference/B3_architecture_tuning.py:251-289``): the bayes mode
 must beat seeded random search on a deterministic objective within the
-same trial budget (the VERDICT acceptance bar).
+same trial budget.
 """
 
 import numpy as np

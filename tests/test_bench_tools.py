@@ -1,11 +1,11 @@
 """Smoke tests for the benchmark tools' subprocess child modes.
 
-The round-3 measurement methodology runs every device leg / model
-profile in its own single-program subprocess (resident-program
-contamination, NOTES.md).  These tests exercise the child entry points
-in-process on the CPU mesh so the plumbing (corpus setup, batcher
-construction, leg selection, JSON row format) can't bitrot between TPU
-runs.  Times are meaningless on CPU; only structure is asserted.
+The tools run every device leg / model profile in its own subprocess,
+one at a time, so each program is timed alone and one JAX process holds
+the card.  These tests exercise the child entry points in-process on the
+CPU mesh so the plumbing (corpus setup, batcher construction, leg
+selection, JSON row format) can't bitrot between GPU runs.  Times are
+meaningless on CPU; only structure is asserted.
 """
 
 import json
@@ -52,7 +52,7 @@ def bench_corpus(tmp_path_factory):
 
 def test_bench_pipeline_host_leg(bench_corpus, capsys):
     from tools.bench_pipeline import run_child_leg
-    run_child_leg("host_step", bench_corpus, jax_cache=None)
+    run_child_leg("host_step", bench_corpus)
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["leg"] == "host_step"
     assert row["ms"] > 0
@@ -60,7 +60,7 @@ def test_bench_pipeline_host_leg(bench_corpus, capsys):
 
 def test_bench_pipeline_fused_leg(bench_corpus, capsys):
     from tools.bench_pipeline import run_child_leg
-    run_child_leg("fused_Lemaire_et_al_MTL", bench_corpus, jax_cache=None)
+    run_child_leg("fused_Lemaire_et_al_MTL", bench_corpus)
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["leg"] == "fused_Lemaire_et_al_MTL"
     assert row["ms"] > 0
@@ -83,38 +83,15 @@ def _files(root):
 
 
 def test_profile_models_child_row():
-    from tools.profile_models import model_row
-    row = model_row("Lemaire_et_al_MTL")
+    from tools.profile_models import model_row, peaks_for
+    row = model_row("Lemaire_et_al_MTL",
+                    peaks=peaks_for("NVIDIA H100 80GB HBM3"))
     for key in ("train_step_ms", "train_step_gflops",
                 "train_step_bytes_gb", "train_step_achieved_gbps",
                 "train_step_hbm_frac", "forward_ms"):
         assert key in row, key
     assert row["train_step_ms"] > 0
     assert row["train_step_gflops"] > 0
-
-
-def test_bench_frontend_child_rows(monkeypatch, capsys):
-    """Every bench_frontend leg kind runs and emits a well-formed row
-    (tiny geometry, Pallas legs in interpret mode on CPU)."""
-    import tools.bench_frontend as bf
-    monkeypatch.setitem(bf.GEOMETRIES, "1x1", (1, 1.0))
-    for leg in ("full", "prep", "raw", "no_median"):
-        row = bf.run_child(leg, "1x1", 768)
-        out_row = json.loads(capsys.readouterr().out.strip()
-                             .splitlines()[-1])
-        assert out_row == row
-        assert row["leg"] == leg and row["cells"] >= 1
-        assert row["ms"] > 0 and row["us_per_cell"] > 0
-
-
-def test_bench_frontend_roofline_row():
-    import tools.bench_frontend as bf
-    r = bf.roofline_row("16x30", 768, measured_raw_ms=1.8,
-                        measured_nomed_ms=1.2, prep_ms=0.1)
-    assert r["cells"] == 64
-    assert r["bound_us_mxu"] > 0 and r["bound_us_hbm"] > 0
-    assert 0 < r["median_share_measured"] < 1
-    assert r["mxu_frac_of_peak"] > 0
 
 
 def test_bench_serving_child_rows(capsys):
@@ -134,7 +111,7 @@ def test_bench_serving_child_rows(capsys):
 def test_scale_rehearsal_pipeline_row(tmp_path, capsys):
     """The scale-rehearsal child runs a full (tiny) fold end-to-end and
     reports duration-derived steps, per-epoch wall clock, and cache
-    stats — the plumbing the at-scale TPU run depends on."""
+    stats — the plumbing the at-scale run depends on."""
     from tools.scale_rehearsal import ensure_corpus, run_pipeline
     root = str(tmp_path / "scale_smoke")
     ensure_corpus(root, n_music=4, n_speech=4, dur_scale=0.08)

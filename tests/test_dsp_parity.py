@@ -1,7 +1,7 @@
 """Parity tests: JAX device ops vs the numpy golden reference.
 
 The golden (``ops.reference``) re-implements the librosa algorithms the
-reference repo calls; the BASELINE.json fidelity bar is <1e-3 relative
+reference repo calls; the BASELINE.md fidelity bar is <1e-3 relative
 mask error, which these tests enforce (and considerably tighter for the
 linear ops).
 """
@@ -143,7 +143,7 @@ def test_power_to_db_clamp_is_per_item():
 
 
 def test_hpss_mask_fidelity(audio_1s):
-    """The BASELINE.json bar: <1e-3 relative mask error vs the golden."""
+    """The BASELINE.md bar: <1e-3 relative mask error vs the golden."""
     S = ref.stft_mag(audio_1s, N_FFT, WIN, HOP).astype(np.float32)
     mh, mp = jhpss.hpss_masks(jnp.asarray(S), l_harm=21, l_perc=11)
     gh, gp = ref.hpss_masks(S, 21, 11)
@@ -199,6 +199,21 @@ def test_featuregram_parity(audio_1s, feat_name):
     assert got.shape == want.shape
     assert got.shape[0] == fg.feature_dim(feat_name)
     np.testing.assert_allclose(got, want.astype(np.float32), rtol=2e-3, atol=2e-2)
+
+
+@pytest.mark.parametrize("feat_name", fg.FEATURE_NAMES)
+def test_featuregram_matches_numpy_chain(audio_1s, feat_name):
+    got = np.asarray(fg.featuregram(jnp.asarray(audio_1s),
+                                    feat_name=feat_name))
+    want = ref.featuregram(audio_1s, feat_name)
+    assert got.shape == want.shape == (fg.feature_dim(feat_name),
+                                       want.shape[1])
+    if feat_name.startswith("Log"):
+        # dB features: the repo's 0.02 dB fidelity bar (BASELINE.md).
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-2)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-3,
+                                   atol=2e-3 * np.abs(want).max())
 
 
 def test_featuregram_all_names_shapes(audio_1s):
@@ -275,7 +290,7 @@ def test_featuregram_slabbed_global_clamp(feat_name):
 @pytest.mark.parametrize("feat_name", ["LogMelHarmPercSpec", "LogMelSpec"])
 def test_featuregram_slabbed_device_out(feat_name):
     # device_out=True assembles the featuregram ON DEVICE (the
-    # TPU-native serving chain hands it straight to the scan
+    # device serving chain hands it straight to the scan
     # segmenter); it must match the host-path output exactly,
     # including the deferred per-component clamp (quiet-plus-burst
     # signal so the clamp binds).

@@ -37,10 +37,10 @@ def test_device_patches_max_patches_trims_after_standardization(rng):
     audio = rng.standard_normal((3, 16000)).astype(np.float32)
     full = np.asarray(device_featurize_patches(
         jnp.asarray(audio), cfg, patch_size=16, patch_shift=16,
-        input_kind="time_mel", use_pallas=False))
+        input_kind="time_mel"))
     kept = np.asarray(device_featurize_patches(
         jnp.asarray(audio), cfg, patch_size=16, patch_shift=16,
-        input_kind="time_mel", use_pallas=False, max_patches=2))
+        input_kind="time_mel", max_patches=2))
     assert kept.shape[0] == 2 * 3  # k * B
     np.testing.assert_array_equal(kept, full[:2 * 3])
 
@@ -81,7 +81,7 @@ def test_device_patches_match_host_pipeline(rng):
 
     got = np.asarray(device_featurize_patches(
         jnp.asarray(audio), cfg, patch_size=16, patch_shift=16,
-        input_kind="time_mel", use_pallas=False))
+        input_kind="time_mel"))
 
     from sm_hpss_mtl_tpu.ops import featuregram as fg
     k = None
@@ -115,11 +115,10 @@ def test_audio_train_step_learns(rng):
 
     opt, _ = for_model("Lemaire_et_al_MTL", tr_steps=100000)
     sample = device_featurize_patches(jnp.asarray(audio), cfg,
-                                      patch_size=16, patch_shift=16,
-                                      use_pallas=False)
+                                      patch_size=16, patch_shift=16)
     state = TrainState.create(spec.module, opt, sample, RNG)
     step = make_audio_train_step(spec.module, opt, cfg, patch_size=16,
-                                 patch_shift=16, mtl=True, use_pallas=False)
+                                 patch_shift=16, mtl=True)
     rng_j = RNG
     losses = []
     for _ in range(8):
@@ -143,10 +142,10 @@ def test_audio_train_step_data_parallel():
     labels = _clip_labels(B)
     opt, _ = for_model("Lemaire_et_al_MTL", tr_steps=100)
     sample = device_featurize_patches(audio, cfg, patch_size=16,
-                                      patch_shift=16, use_pallas=False)
+                                      patch_shift=16)
     state = TrainState.create(spec.module, opt, sample, RNG)
     step = make_audio_train_step(spec.module, opt, cfg, patch_size=16,
-                                 patch_shift=16, mtl=True, use_pallas=False)
+                                 patch_shift=16, mtl=True)
 
     mesh = make_mesh()
     ab, lb = shard_batch((audio, labels), mesh)
@@ -169,8 +168,7 @@ def test_audio_steps_dual_tower(rng):
     B = 3
     audio = jnp.asarray(rng.standard_normal((B, 16000)).astype(np.float32))
     sample = device_featurize_patches(audio, cfg, patch_size=12,
-                                      patch_shift=12, input_kind="dual",
-                                      use_pallas=False)
+                                      patch_shift=12, input_kind="dual")
     assert set(sample) == {"harm_input", "perc_input"}
     assert sample["harm_input"].shape[-1] == 10
 
@@ -189,13 +187,11 @@ def test_audio_steps_dual_tower(rng):
         "3C": jnp.asarray(oh),
     }
     step = make_audio_train_step(spec.module, opt, cfg, patch_size=12,
-                                 patch_shift=12, input_kind="dual",
-                                 use_pallas=False)
+                                 patch_shift=12, input_kind="dual")
     state2, metrics = step(state, audio, labels, rng_j)
     assert np.isfinite(float(metrics["loss"]))
     assert int(state2.step) == 1
     ev = make_audio_eval_step(spec.module, cfg, patch_size=12,
-                              patch_shift=12, input_kind="dual",
-                              use_pallas=False)
+                              patch_shift=12, input_kind="dual")
     m = ev(state2, audio, labels)
     assert np.isfinite(float(m["loss"]))

@@ -47,7 +47,7 @@ def test_run_experiment_end_to_end(toy_root, tmp_path, model):
     assert "epoch_train_s" in header
     assert "patch_lru" in out["cache_stats"]
     assert out["cache_stats"]["featurizer"]["computes"] > 0
-    assert os.path.exists(os.path.join(op_dir, "fold0_ckpt", "state"))
+    assert os.path.exists(os.path.join(op_dir, "fold0_ckpt", "state.npz"))
     cfg_csv = os.path.join(str(tmp_path / "results"), model,
                            "LogMelHarmPercSpec", "Configuration.csv")
     assert os.path.exists(cfg_csv)
@@ -151,8 +151,8 @@ def test_resume_status_replay():
 
 def test_resolve_clip_patches_adaptive():
     """clip_patches=0 adapts to corpus size: small classes get maximal
-    per-step clip diversity (the measured 0.797-vs-0.719 effect,
-    REAL_AUDIO.json), large corpora pack 4 patches per clip."""
+    per-step clip diversity (a real-audio ablation lost accuracy at
+    several patches per clip), large corpora pack 4 patches per clip."""
     from sm_hpss_mtl_tpu.cli.experiment import resolve_clip_patches
 
     small = {c: [f"{c}{i}" for i in range(30)]
@@ -215,8 +215,8 @@ def test_feat_name_override():
 
 
 def test_pipeline_auto_resolves_to_host_on_cpu(toy_root, tmp_path):
-    """pipeline='auto' must pick the host pipeline on non-TPU backends
-    (on TPU it selects the fused device pipeline; cli/experiment.py)."""
+    """pipeline='auto' must pick the host pipeline on the CPU
+    (cli/experiment.py)."""
     cfg = ExperimentConfig(
         model="Lemaire_et_al_MTL", data_root=toy_root,
         output_dir=str(tmp_path / "res"), epochs=1, batch_size=2,
@@ -323,7 +323,7 @@ def test_classifier_inference_api(toy_root, tmp_path):
 @pytest.mark.quick
 def test_metric_accumulation_matches_host_mean():
     """The on-device epoch-metric accumulation (one packed fetch per
-    epoch — the SCALE_r4 high-latency-link fix) must agree with the
+    epoch instead of one per step) must agree with the
     naive per-row host mean it replaced."""
     import jax.numpy as jnp
 

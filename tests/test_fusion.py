@@ -43,7 +43,7 @@ def test_late_fusion_cli(toy_root, tmp_path):
         tr_steps=2, v_steps=1, augment_noise=False)
     out = run_experiment(cfg, folds=[0], verbose=False)[0]
     ckpt = os.path.join(out["op_dir"], "fold0_ckpt")
-    assert os.path.exists(os.path.join(ckpt, "state"))
+    assert os.path.exists(os.path.join(ckpt, "state.npz"))
 
     res = fuse_late.main([
         "--data", toy_root, "--ckpt-harm", ckpt, "--ckpt-perc", ckpt,

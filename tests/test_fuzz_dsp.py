@@ -10,9 +10,9 @@ from hypothesis import given, settings, strategies as st
 import jax.numpy as jnp
 
 from sm_hpss_mtl_tpu.ops import hpss as jhpss
+from sm_hpss_mtl_tpu.ops.hpss import batcher_pairs, median_network
 from sm_hpss_mtl_tpu.ops import reference as ref
 from sm_hpss_mtl_tpu.ops import stft as jstft
-from sm_hpss_mtl_tpu.ops.hpss_pallas import batcher_pairs, median_network
 from sm_hpss_mtl_tpu.ops.patches import extract_patches_np, num_patches
 
 _SETTINGS = dict(max_examples=25, deadline=None)

@@ -206,8 +206,8 @@ def test_batch_stats_update():
 
 
 def test_fast_max_pool_matches_flax(rng):
-    """models.pool.max_pool (reshape-max / strided-slice-max, TPU-fast
-    backward) must equal nn.max_pool for every config the models use."""
+    """models.pool.max_pool (reshape-max / strided-slice-max) must equal
+    flax's nn.max_pool for every config the models use."""
     import flax.linen as nn
     from sm_hpss_mtl_tpu.models.pool import max_pool
 

@@ -107,7 +107,7 @@ def test_streaming_segmenter_scan_matches_slab_loop():
 def test_streaming_segmenter_chunk_scope_standardization():
     """standardize=True == slab-local ('chunk') scope: each slab is
     row-standardized independently (the training-featuregram analog for
-    streaming — see REAL_AUDIO.json broadcast ablation), and the scan
+    streaming), and the scan
     driver matches the slab loop under it."""
     rng = np.random.default_rng(3)
     # full-slab geometry (n_windows = 500 = 5 slabs): on ragged tails the
@@ -145,7 +145,7 @@ def test_streaming_segmenter_chunk_scope_standardization():
 
 def test_streaming_segmenter_device_featuregram():
     """A jax.Array featuregram (featuregram_slabbed(device_out=True) —
-    the TPU-native serving chain) must produce the same tracks as the
+    the device serving chain) must produce the same tracks as the
     host array through BOTH drivers, with standardization on (the
     production default)."""
     rng = np.random.default_rng(7)
@@ -271,7 +271,7 @@ def test_scan_segmenter_caches_compiled_program(rng):
 
 
 def test_featurize_broadcast_uses_slabbed_path(monkeypatch):
-    # VERDICT r4 #2: long broadcasts must featurize via the fixed-shape
+    # Long broadcasts must featurize via the fixed-shape
     # slabbed path (two compiled programs per config) and match the
     # whole-signal featuregram.  Shrink the threshold so the test stays
     # small.

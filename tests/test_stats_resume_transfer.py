@@ -142,10 +142,10 @@ def test_transfer_learn_composes_with_audio_steps(rng):
     opt, _ = for_model("Lemaire_et_al_MTL", tr_steps=100)
     sample = device_featurize_patches(
         jnp.asarray(rng.standard_normal((B, 16000)).astype(np.float32)),
-        cfg, patch_size=12, patch_shift=12, use_pallas=False)
+        cfg, patch_size=12, patch_shift=12)
     state = TrainState.create(spec.module, opt, sample, rng_j)
 
-    kw = dict(patch_size=12, patch_shift=12, use_pallas=False)
+    kw = dict(patch_size=12, patch_shift=12)
     res = transfer_learn(
         spec.module, opt, state, stream(), stream(), mtl=True,
         epochs=2, steps_per_epoch=2, val_steps=1, initial_epoch=1,

@@ -1,21 +1,19 @@
-"""Matched host-vs-device pipeline quality A/B (+ DFT-precision arm).
+"""Matched host-vs-device pipeline quality A/B.
 
 Runs the SAME toy corpus, seeds, folds and epoch budget through:
 
-  A. --pipeline host                     (reference-parity patch batching)
-  B. --pipeline device  (bf16x3 DFT)     (fused audio->features->train)
-  C. --pipeline device  (highest DFT)
+  A. --pipeline host     (reference-parity patch batching)
+  B. --pipeline device   (fused audio->features->train)
 
-and writes per-fold test accuracy + macro-F1 for each arm to
-``AB_PIPELINE.json``.  This is the controlled comparison the round-2
-device-pipeline demos lacked: identical data, identical label semantics
-knobs, only the pipeline (and then only the DFT precision) varies.  The
+and writes per-fold test accuracy + macro-F1 for each arm to one JSON
+report.  Identical data, identical label semantics knobs, only the
+pipeline varies.  The
 device pipeline's *sampling* semantics still differ by design (random
 clip crops vs whole-file sweeps; crop-local standardization; clip-level
 labels — ``data/audiostream.py:11-26``); this experiment measures
 whether those deltas cost model quality.
 
-    python tools/ab_pipeline.py --out AB_PIPELINE.json
+    python tools/ab_pipeline.py --out bench_out/ab_pipeline.json
 """
 
 import argparse
@@ -28,8 +26,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ARMS = {
     "host": ["--pipeline", "host"],
-    "device_bf16x3": ["--pipeline", "device", "--dft-precision", "bf16x3"],
-    "device_highest": ["--pipeline", "device", "--dft-precision", "highest"],
+    "device": ["--pipeline", "device"],
 }
 
 
@@ -73,15 +70,17 @@ def run_arm(name, extra, root, out_base, epochs, seed):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=os.path.join(REPO, "AB_PIPELINE.json"))
-    ap.add_argument("--root", default="/tmp/ab_r3/toy")
-    ap.add_argument("--work", default="/tmp/ab_r3")
+    work = os.path.join(REPO, "bench_out", "ab_pipeline")
+    ap.add_argument("--out", default=os.path.join(work, "ab_pipeline.json"))
+    ap.add_argument("--root", default=os.path.join(work, "toy"))
+    ap.add_argument("--work", default=work)
     ap.add_argument("--epochs", type=int, default=15)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--arms", nargs="*", default=list(ARMS))
     ap.add_argument("--key-suffix", default="",
-                    help="suffix for report arm keys (e.g. '_tpu'), so the "
-                         "same arm run on another backend doesn't overwrite")
+                    help="suffix for report arm keys (e.g. '_h100'), so "
+                         "the same arm run on another device doesn't "
+                         "overwrite")
     args = ap.parse_args(argv)
 
     if not os.path.exists(os.path.join(args.root, "music")):
@@ -89,9 +88,8 @@ def main(argv=None):
         from sm_hpss_mtl_tpu.data import make_toy_musan
         make_toy_musan(args.root, n_per_class=24, duration_s=4.0, seed=7)
 
-    # Merge into an existing report so arms can be (re)run per backend —
-    # the host/device quality arms run on the CPU mesh; the
-    # bf16x3-vs-highest precision arms need the real TPU.
+    # Merge into an existing report so arms can be (re)run per device.
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     if os.path.exists(args.out):
         with open(args.out) as f:
             report = json.load(f)
@@ -102,9 +100,6 @@ def main(argv=None):
                                "patch": "32/16", "tr_steps": 20,
                                "seed": args.seed},
                   "arms": {}}
-    sys.path.insert(0, REPO)
-    import jax
-    backend = jax.default_backend()
     for name in args.arms:
         key = name + args.key_suffix
         folds = run_arm(key, ARMS[name], args.root, args.work,
@@ -112,7 +107,6 @@ def main(argv=None):
         accs = [f["accuracy"] for f in folds if f["accuracy"] is not None]
         report["arms"][key] = {
             "folds": folds,
-            "backend": backend,
             # Per-arm run settings: merged reports can mix invocations, so
             # the top-level "settings" block only describes the original
             # run — each arm records the settings it actually ran with.

@@ -48,8 +48,8 @@ def window_labels(marker: np.ndarray, W: int, shift: int) -> np.ndarray:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ckpt", required=True)
-    ap.add_argument("--broadcast", default="/tmp/real_broadcast.wav")
-    ap.add_argument("--annot", default="/tmp/real_broadcast_speech.csv")
+    ap.add_argument("--broadcast", default="bench_out/real_broadcast.wav")
+    ap.add_argument("--annot", default="bench_out/real_broadcast_speech.csv")
     ap.add_argument("--patch-size", type=int, default=32)
     ap.add_argument("--epochs", type=int, default=8)
     ap.add_argument("--steps", type=int, default=25)

@@ -9,7 +9,7 @@ runs on REAL audio instead of the synthetic toy corpus — the closest
 available proxy for the TASLP MUSAN protocol (the corpus itself is not
 distributable here).
 
-    python tools/real_corpus.py --out /tmp/real_musan [--clip-s 4]
+    python tools/real_corpus.py --out bench_out/real_musan [--clip-s 4]
 """
 
 import argparse
@@ -41,7 +41,7 @@ def slice_clips(x: np.ndarray, clip_s: float, min_rms: float = 0.01):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--out", default="/tmp/real_musan")
+    ap.add_argument("--out", default="bench_out/real_musan")
     ap.add_argument("--clip-s", type=float, default=4.0)
     ap.add_argument("--max-per-class", type=int, default=0,
                     help="0 = keep all clips")

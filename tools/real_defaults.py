@@ -1,17 +1,14 @@
-"""Re-run the REAL_AUDIO device-pipeline arm on round-4 DEFAULTS.
+"""Run the device pipeline on the real-audio corpus at its DEFAULTS.
 
-Round 3 measured the small-corpus failure mode: the device pipeline at
-``clip_patches=2`` scores 0.719 mean with two folds early-stop
-collapsing, vs 0.797 at ``clip_patches=1`` (REAL_AUDIO.json
-``tpu_device_pipeline``) — and the fix shipped as NOTES guidance, not
-defaults.  Round 4 made ``clip_patches=0`` (adaptive) the default:
-corpora whose smallest training class has <8*batch clips resolve to 1.
-This tool re-runs the same protocol (real corpus from the reference's
-own demo audio, 3 folds, 40 epochs x 30 steps, batch 8, patch 32/16,
-seed 0, ``--pipeline device``) with NO clip_patches override, and
-merges the result into REAL_AUDIO.json as
-``tpu_device_pipeline_defaults_r4`` — proving a user running defaults
-now gets the diverse (non-collapsing) regime.
+On a small corpus, packing several patches per sampled clip
+(``clip_patches=2``) starves each step of clip diversity and folds
+early-stop collapse; ``clip_patches=0`` (adaptive, the default) resolves
+to 1 for corpora whose smallest training class has <8*batch clips.
+This tool runs the real-audio protocol (corpus from the reference's own
+demo audio, 3 folds, 40 epochs x 30 steps, batch 8, patch 32/16,
+seed 0, ``--pipeline device``) with NO clip_patches override and writes
+the resolved setting and fold accuracies as ``device_pipeline_defaults``
+— whether a user running defaults gets the diverse regime.
 
     python tools/real_defaults.py
 """
@@ -27,9 +24,10 @@ sys.path.insert(0, REPO)
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default="/tmp/real_musan")
-    ap.add_argument("--work", default="/tmp/real_defaults_r4")
-    ap.add_argument("--out", default=os.path.join(REPO, "REAL_AUDIO.json"))
+    work = os.path.join(REPO, "bench_out", "real_defaults")
+    ap.add_argument("--root", default=os.path.join(work, "real_musan"))
+    ap.add_argument("--work", default=work)
+    ap.add_argument("--out", default=os.path.join(work, "real_defaults.json"))
     ap.add_argument("--epochs", type=int, default=40)
     args = ap.parse_args(argv)
 
@@ -37,11 +35,10 @@ def main(argv=None):
         from tools.real_corpus import main as build
         build(["--out", args.root])
 
-    import jax
-
     from sm_hpss_mtl_tpu.cli.experiment import (resolve_clip_patches,
                                                 run_experiment)
     from sm_hpss_mtl_tpu.train import ExperimentConfig
+    from sm_hpss_mtl_tpu.utils.device import device_report
 
     cfg = ExperimentConfig(
         model="Lemaire_et_al_MTL", data_root=args.root,
@@ -71,23 +68,20 @@ def main(argv=None):
     if os.path.exists(args.out):
         with open(args.out) as f:
             report = json.load(f)
-    report["tpu_device_pipeline_defaults_r4"] = {
-        "what": "Same protocol as tpu_device_pipeline but running the "
-                "round-4 DEFAULTS: clip_patches=0 resolves adaptively "
-                "(smallest training class < 8*batch clips -> 1 patch "
-                "per clip, max per-step clip diversity).",
-        "backend": jax.default_backend(),
+    report["device_pipeline_defaults"] = {
+        "what": "Real-audio protocol at the DEFAULTS: clip_patches=0 "
+                "resolves adaptively (smallest training class < 8*batch "
+                "clips -> 1 patch per clip, max per-step clip diversity).",
+        "device": device_report(),
         "resolved_clip_patches": resolved,
         "fold_accuracies": [round(a, 4) for a in accs],
         "mean": round(sum(accs) / len(accs), 4),
         "epochs_run": epochs_run,
-        "comparison": {"host_pipeline_mean": 0.830,
-                       "device_cp2_mean_r3": 0.7193,
-                       "device_cp1_mean_r3": 0.797},
     }
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
-    print(json.dumps(report["tpu_device_pipeline_defaults_r4"], indent=1))
+    print(json.dumps(report["device_pipeline_defaults"], indent=1))
 
 
 if __name__ == "__main__":
